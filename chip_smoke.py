@@ -9,32 +9,49 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 Phases — any failure raises, so the script exits non-zero and prints no
 result line:
 
-  1. build  every kernel of the port from the sources in this checkout
-            (ops/csrc/gf_matmul.cu, nvcc, into build/kernels/);
-  2. kernel vs plain: the kernel's wrapper on the card against its plain
-            PyTorch version on the same inputs, byte-equal (tolerance 0:
-            GF(2^8) math is exact), for every matrix kind of the main path,
-            unaligned k, batch dims and r = 0, each with its time, the plain
-            version's time and the bound;
-  3. main path: CodecService(device="cuda") serves the blobstore's device
+  1. build  every kernel of the port from the sources in this checkout, one
+            nvcc per source, all started together (ops/csrc/gf_matmul.cu, B1;
+            ops/csrc/gf_matmul_pipe.cu, B2; into build/kernels/), and print
+            each ptxas report;
+  2. kernel vs plain: each kernel's wrapper on the card (B1, B2 with dynamic
+            slots, B2 with static slots) against the plain PyTorch version on
+            the same inputs, byte-equal (tolerance 0: GF(2^8) math is exact),
+            for every matrix kind of the main path, unaligned k, batch dims
+            and r = 0, each with its time, the plain version's time and the
+            bound;
+  3. codec path: CodecService(device="cuda") serves the blobstore's device
             work from concurrent submitter threads at the blobstore's sizes
             (PUT encodes, degraded reconstruct, bulk repair, LRC archive
             encode, product-matrix encode + rebuild, ranged-read window
             decode); every result is checked;
   4. encoder: new_encoder(EC12P4) split -> encode -> kill 4 -> reconstruct
-            -> join on the card.
+            -> join on the card;
+  5. gateway path: MiniCluster(device="cuda"), 9 nodes x 2 disks. 4 client
+            threads PUT a 64 MiB object each (16 EC(12,4) blobs through the
+            pipelined PUT), then 8 x 1 MiB (EC(6,3)) and 8 x 100 KiB
+            (EC(3,3)); GET everything back and 32 seeded ranges; check stored
+            stripes against the numpy oracle; break 2 disks and GET again
+            (degraded window and full-stripe decodes); run the background
+            loops until the repair worker has rebuilt every lost shard, and
+            check them; then an EC6P3L3 cluster over 3 AZs loses a shard per
+            blob and serves GETs through the local repair. B1 only;
+  6. phase 5's single-AZ part again under CFS_GF_PIPELINED=1 and then
+            CFS_GF_PIPELINED=static: B2 only, B1 launches must be 0.
 
-The launch counter is zeroed right before phase 3 and read right after
-phase 4. Output ends with a `kernels` JSON line, the card's name and power
-limit as nvidia-smi reports them, and the one-line result JSON.
+Every path (3+4, 5, each pass of 6) is driven with every launch count set to
+0 just before it and read just after. Output ends with a `kernels` JSON line,
+the card's name and power limit as nvidia-smi reports them, and the one-line
+result JSON.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -121,39 +138,42 @@ def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
     ]
 
 
-def phase_kernels(cuda_gf, rs, bitmatrix, cases) -> tuple[list[dict], int]:
-    """Kernel vs plain on the card. Returns per-case records and the max
-    absolute byte difference over all cases (0 when they agree)."""
+def phase_kernels(kernels: dict, rs, bitmatrix, blocks, cases) -> tuple[list[dict], dict]:
+    """Each kernel against the plain version on the card. kernels maps a name
+    to (wrapper, launch counter); blocks is cuda_gf.blocks (launches per call). Returns per-case records and, per kernel,
+    the max absolute byte difference over all cases (0 when they agree)."""
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    records, max_err = [], 0
+    records, max_err = [], {name: 0 for name in kernels}
     for name, mat, lead, k in cases:
         r, n = mat.shape
         bits = bitmatrix.expand_matrix(mat).astype(np.int8)
         x = torch.from_numpy(rng.integers(0, 256, (*lead, n, k), dtype=np.uint8)).to(dev)
-        before = cuda_gf.LAUNCHES
-        got = cuda_gf.gf_matmul(bits, x)
-        torch.cuda.synchronize()
-        launches = cuda_gf.LAUNCHES - before
         want = rs.gf_matmul_bytes(bits, x)
         torch.cuda.synchronize()
-        check(got.shape == want.shape == (*lead, r, k), f"{name}: shape {tuple(got.shape)}")
-        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
-        check(err == 0 and torch.equal(got, want), f"{name}: kernel != plain (max err {err})")
-        check(launches == (len(cuda_gf.blocks(r, n)) if r else 0), f"{name}: {launches} launches")
-        del want
         b = int(np.prod(lead))
         payload = b * (n + r) * k
-        iters = max(3, min(50, int(4e9 // max(payload, 1))))
-        k_ms = time_ms(lambda: cuda_gf.gf_matmul(bits, x), iters) if r else 0.0
-        p_ms = time_ms(lambda: rs.gf_matmul_bytes(bits, x), 2) if r else 0.0
-        torch.cuda.empty_cache()
         bms, by = bound_ms(b, n, r, k)
-        rec = {"case": name, "b": b, "n": n, "r": r, "k": k, "equal": True,
-               "launches_per_call": launches, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "bound_us": bms * 1e3, "bound_by": by,
-               "kernel_GBps": payload / (k_ms * 1e-3) / 1e9 if k_ms else None}
+        rec = {"case": name, "b": b, "n": n, "r": r, "k": k, "bound_us": bms * 1e3,
+               "bound_by": by, "kernels": {}}
+        for kname, (fn, count) in kernels.items():
+            before = count()
+            got = fn(bits, x)
+            torch.cuda.synchronize()
+            launches = count() - before
+            check(got.shape == want.shape == (*lead, r, k), f"{name}/{kname}: shape {tuple(got.shape)}")
+            err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) if got.numel() else 0
+            max_err[kname] = max(max_err[kname], err)
+            check(err == 0 and torch.equal(got, want), f"{name}/{kname}: kernel != plain (max err {err})")
+            check(launches == (len(blocks(r, n)) if r else 0), f"{name}/{kname}: {launches} launches")
+            del got
+            iters = max(3, min(50, int(4e9 // max(payload, 1))))
+            k_ms = time_ms(lambda: fn(bits, x), iters) if r else 0.0
+            rec["kernels"][kname] = {"equal": True, "launches_per_call": launches, "ms": k_ms,
+                                     "GBps": payload / (k_ms * 1e-3) / 1e9 if k_ms else None}
+        del want
+        rec["plain_ms"] = time_ms(lambda: rs.gf_matmul_bytes(bits, x), 2) if r else 0.0
+        torch.cuda.empty_cache()
         records.append(rec)
         log("kernel_vs_plain " + json.dumps(rec))
     return records, max_err
@@ -300,6 +320,198 @@ def phase_encoder(new_encoder, CodeMode) -> float:
     return time.perf_counter() - t0
 
 
+# -- phases 5 and 6: the gateway path ---------------------------------------------
+
+
+def put_concurrently(access, payloads: dict[str, bytes], clients: int) -> dict:
+    """PUT every payload, `clients` threads at a time; returns name -> Location."""
+    locs, errors = {}, []
+    names = list(payloads)
+
+    def client(i: int):
+        try:
+            for name in names[i::clients]:
+                locs[name] = access.put(payloads[name])
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads), "PUT clients hung")
+    check(not errors, f"PUT errors: {errors}")
+    return locs
+
+
+def blob_payloads(loc, data: bytes):
+    off = 0
+    for b in loc.blobs:
+        yield b, data[off:off + b.size]
+        off += b.size
+
+
+def stored_stripe(cluster, blob) -> np.ndarray:
+    vol = cluster.cm.get_volume(blob.vid)
+    return np.stack([np.frombuffer(cluster.nodes[u.node_id].get_shard(u.vuid, blob.bid), np.uint8)
+                     for u in vol.units])
+
+
+def oracle_stripe(gf256, t, payload: bytes) -> np.ndarray:
+    """The numpy encode of one RS blob in the gateway's shard layout."""
+    shard_len = t.shard_size(len(payload))
+    rows = np.zeros((t.N, shard_len), np.uint8)
+    rows.reshape(-1)[: len(payload)] = np.frombuffer(payload, np.uint8)
+    return gf256.encode_numpy(gf256.systematic_generator(t.N, t.M), rows)
+
+
+def get_all(access, payloads, locs, ranges) -> None:
+    for name, data in payloads.items():
+        check(access.get(locs[name]) == data, f"GET {name}")
+    for name, off, ln in ranges:
+        check(access.get(locs[name], off, ln) == payloads[name][off:off + ln],
+              f"ranged GET {name} [{off}, +{ln})")
+
+
+def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
+                  lrc: bool = True) -> dict:
+    """Phase 5 (and, with lrc=False, phase 6): the blobstore's own main path
+    on `device`. Returns wall seconds per step."""
+    from chubaofs_tpu_torch.blobstore.access import MAX_BLOB_SIZE
+    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
+    from chubaofs_tpu_torch.blobstore.clustermgr import DISK_BROKEN
+    from chubaofs_tpu_torch.codec.codemode import CodeMode, get_tactic
+    from chubaofs_tpu_torch.ops import gf256
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    steps = {}
+    rng = np.random.default_rng(11)
+    payloads = {f"big{i}": rng.bytes(big_mib * MiB) for i in range(clients)}
+    modes = {name: CodeMode.EC12P4 for name in payloads}
+    for i in range(8):
+        payloads[f"mid{i}"], modes[f"mid{i}"] = rng.bytes(MiB), CodeMode.EC6P3
+        payloads[f"small{i}"], modes[f"small{i}"] = rng.bytes(100 * 1024), CodeMode.EC3P3
+    names = sorted(payloads)
+    ranges = []
+    for _ in range(32):
+        name = names[int(rng.integers(len(names)))]
+        off = int(rng.integers(len(payloads[name])))
+        ranges.append((name, off, int(rng.integers(1, min(MiB, len(payloads[name]) - off) + 1))))
+
+    c = MiniCluster(os.path.join(root, "az1"), n_nodes=9, disks_per_node=2, device=device)
+    try:
+        t0 = time.perf_counter()
+        locs = put_concurrently(c.access, {n: payloads[n] for n in payloads if n.startswith("big")},
+                                clients)
+        steps["put_big"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        locs.update(put_concurrently(c.access, {n: payloads[n] for n in payloads
+                                                if not n.startswith("big")}, clients))
+        steps["put_small"] = time.perf_counter() - t0
+        for name, loc in locs.items():
+            check(loc.code_mode == int(modes[name]), f"{name}: code mode {loc.code_mode}")
+            check(loc.size == len(payloads[name]), f"{name}: size {loc.size}")
+        check(len(locs["big0"].blobs) == big_mib * MiB // MAX_BLOB_SIZE, "64 MiB -> 4 MiB blobs")
+
+        t0 = time.perf_counter()
+        get_all(c.access, payloads, locs, ranges)
+        steps["get_and_ranged"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for name in names:  # each object's first blob
+            blob, payload = next(blob_payloads(locs[name], payloads[name]))
+            want = oracle_stripe(gf256, get_tactic(locs[name].code_mode), payload)
+            check(np.array_equal(stored_stripe(c, blob), want), f"{name}: stored stripe != oracle")
+        steps["stripe_check"] = time.perf_counter() - t0
+
+        # degraded: two disks under the first big blob's data shard 0 and parity 13 lose everything
+        t0 = time.perf_counter()
+        vol0 = c.cm.get_volume(locs["big0"].blobs[0].vid)
+        victims = {vol0.units[0].disk_id, vol0.units[13].disk_id}
+        lost = {}
+        for name in names:
+            for blob, _ in blob_payloads(locs[name], payloads[name]):
+                vol = c.cm.get_volume(blob.vid)
+                for idx, u in enumerate(vol.units):
+                    if u.disk_id in victims:
+                        lost[(blob.vid, blob.bid, idx)] = c.nodes[u.node_id].get_shard(u.vuid, blob.bid)
+                        c.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
+        for d in victims:
+            c.cm.set_disk_status(d, DISK_BROKEN)
+        decoded0 = registry("access").counter("read_bytes", {"kind": "decoded"}).value
+        get_all(c.access, payloads, locs, ranges)
+        decoded = registry("access").counter("read_bytes", {"kind": "decoded"}).value - decoded0
+        check(decoded > 0, "degraded GETs decoded nothing")
+        steps["degraded_get_and_ranged"] = time.perf_counter() - t0
+
+        # repair: the background loops until every lost shard is back, byte-equal
+        t0 = time.perf_counter()
+        ticks, pending = 0, dict(lost)
+        while pending and ticks < 30:
+            c.run_background_once()
+            ticks += 1
+            for key in list(pending):
+                vid, bid, idx = key
+                u = c.cm.get_volume(vid).units[idx]
+                try:
+                    got = c.nodes[u.node_id].get_shard(u.vuid, bid)
+                except Exception:
+                    continue
+                check(got == pending.pop(key), f"rebuilt shard {key} != the one lost")
+        check(not pending, f"{len(pending)} of {len(lost)} lost shards not rebuilt in {ticks} ticks")
+        for name in names:  # the rebuilt stripes hold against the oracle too
+            blob, payload = next(blob_payloads(locs[name], payloads[name]))
+            want = oracle_stripe(gf256, get_tactic(locs[name].code_mode), payload)
+            check(np.array_equal(stored_stripe(c, blob), want), f"{name}: repaired stripe != oracle")
+        get_all(c.access, payloads, locs, ranges[:8])
+        steps["repair"] = time.perf_counter() - t0
+        steps["repaired_shards"] = len(lost)
+        steps["repair_ticks"] = ticks
+    finally:
+        c.close()
+
+    if lrc:
+        t0 = time.perf_counter()
+        c = MiniCluster(os.path.join(root, "az3"), azs=3, n_nodes=6, disks_per_node=2,
+                          device=device)
+        try:
+            lp = {f"lrc{i}": rng.bytes(8 * MiB) for i in range(4)}
+            llocs = {n: c.access.put(d, code_mode=CodeMode.EC6P3L3) for n, d in lp.items()}
+            for name, loc in llocs.items():
+                for blob, payload in blob_payloads(loc, lp[name]):
+                    u = c.cm.get_volume(blob.vid).units[1]
+                    c.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
+            for name, loc in llocs.items():
+                check(c.access.get(loc) == lp[name], f"LRC GET {name}")
+                check(c.access.get(loc, 5 * MiB + 7, 300_000) == lp[name][5 * MiB + 7:5 * MiB + 300_007],
+                      f"LRC ranged GET {name}")
+        finally:
+            c.close()
+        steps["lrc_put_lose_get"] = time.perf_counter() - t0
+    return steps
+
+
+def build_all(libs) -> float:
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+    errors = []
+
+    def build(lib):
+        try:
+            lib.load()
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"{lib.__name__}: {e}")
+
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"kernel build failed: {errors}")
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs on a GPU",
@@ -312,65 +524,127 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("CFS_GF_PIPELINED", None)  # phases 3-5 run B1; phase 6 sets it
 
     from chubaofs_tpu_torch import models
     from chubaofs_tpu_torch.codec import CodeMode, new_encoder, pm
     from chubaofs_tpu_torch.codec.codemode import get_tactic
     from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
     from chubaofs_tpu_torch.codec.service import CodecService
-    from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, gf256, rs
+    from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, cuda_gf_pipe, gf256, rs
 
     t_start = time.perf_counter()
+    wall = {}
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
+    def zero_counts():
+        cuda_gf.LAUNCHES = 0
+        for v in cuda_gf_pipe.LAUNCHES:
+            cuda_gf_pipe.LAUNCHES[v] = 0
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        return {"gf_matmul": cuda_gf.LAUNCHES,
+                "gf_matmul_pipe": cuda_gf_pipe.LAUNCHES["dynamic"],
+                "gf_matmul_pipe_static": cuda_gf_pipe.LAUNCHES["static"]}
+
     # phase 1: build
+    wall["1_build"] = build_all([cuda_gf, cuda_gf_pipe])
+    for lib in (cuda_gf, cuda_gf_pipe):
+        log(f"build: {lib.__name__} {lib.BUILD_INFO['seconds']:.2f} s -> {lib.BUILD_INFO['path']}")
+        log(lib.BUILD_INFO["ptxas"])
+
+    # phase 2: each kernel against its plain version
     t0 = time.perf_counter()
-    cuda_gf.load()
-    log(f"build: gf_matmul {time.perf_counter() - t0:.2f} s -> {cuda_gf.BUILD_INFO['path']}")
-    log(cuda_gf.BUILD_INFO["ptxas"])
-
-    # phase 2: each kernel against its plain version on the card
+    kernels = {
+        "gf_matmul": (cuda_gf.gf_matmul, lambda: cuda_gf.LAUNCHES),
+        "gf_matmul_pipe": (lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x),
+                           lambda: cuda_gf_pipe.LAUNCHES["dynamic"]),
+        "gf_matmul_pipe_static": (
+            lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x, static_slots=True),
+            lambda: cuda_gf_pipe.LAUNCHES["static"]),
+    }
     cases = kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic)
-    records, max_err = phase_kernels(cuda_gf, rs, bitmatrix, cases)
+    records, max_err = phase_kernels(kernels, rs, bitmatrix, cuda_gf.blocks, cases)
     main_rec = records[0]  # ec12p4_parity_bucket: what the service launches for FLAGSHIP
+    wall["2_kernel_vs_plain"] = time.perf_counter() - t0
 
-    # phases 3 + 4: the main path, launch counts zeroed just before
+    # phases 3 + 4: the codec path, B1
     svc = CodecService(device="cuda")
     try:
-        cuda_gf.LAUNCHES = 0
+        zero_counts()
         stats0 = svc.stats_snapshot()
         t0 = time.perf_counter()
         phases = phase_main_path(svc, gf256, pm, get_tactic, lrc_parity_matrix, models)
         phases["encoder_ec12p4_roundtrip"] = phase_encoder(new_encoder, CodeMode)
-        torch.cuda.synchronize()
-        launches = cuda_gf.LAUNCHES
+        counts = read_counts()
         stats = svc.stats_snapshot()
     finally:
         svc.close()
+    wall["3_4_codec_path"] = time.perf_counter() - t0
     batches = stats["batches"] - stats0["batches"]
-    log("main_path " + json.dumps({"seconds": time.perf_counter() - t0, "phases_s": phases,
+    log("main_path " + json.dumps({"seconds": wall["3_4_codec_path"], "phases_s": phases,
                                    "service_stats": stats, "device_batches": batches,
-                                   "gf_matmul_launches": launches}))
-    check(launches > 0, "the main path launched no gf_matmul kernel")
-    check(launches >= batches, f"{launches} launches < {batches} device batches")
+                                   "launches": counts}))
+    check(counts["gf_matmul"] > 0, "the codec path launched no gf_matmul kernel")
+    check(counts["gf_matmul"] >= batches, f"{counts['gf_matmul']} launches < {batches} device batches")
 
-    kernels = [{
-        "name": "gf_matmul",
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # phase 5: the gateway path, B1
+        zero_counts()
+        t0 = time.perf_counter()
+        steps = phase_gateway(os.path.join(tmp, "p5"), "cuda")
+        counts = read_counts()
+        wall["5_gateway"] = time.perf_counter() - t0
+        log("gateway " + json.dumps({"seconds": wall["5_gateway"], "steps_s": steps,
+                                     "launches": counts}))
+        check(counts["gf_matmul"] > 0, "the gateway path launched no gf_matmul kernel")
+        check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+              f"B2 launched without CFS_GF_PIPELINED: {counts}")
+        launches["gf_matmul"] = counts["gf_matmul"]
+
+        # phase 6: the single-AZ gateway path again, on each B2 variant
+        for env, name in (("1", "gf_matmul_pipe"), ("static", "gf_matmul_pipe_static")):
+            os.environ["CFS_GF_PIPELINED"] = env
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                steps = phase_gateway(os.path.join(tmp, f"p6_{name}"), "cuda", lrc=False)
+                counts = read_counts()
+            finally:
+                os.environ.pop("CFS_GF_PIPELINED", None)
+            wall[f"6_gateway_{name}"] = time.perf_counter() - t0
+            log(f"gateway CFS_GF_PIPELINED={env} " + json.dumps(
+                {"seconds": wall[f"6_gateway_{name}"], "steps_s": steps, "launches": counts}))
+            check(counts[name] > 0, f"CFS_GF_PIPELINED={env}: {name} never launched")
+            check(all(v == 0 for k, v in counts.items() if k != name),
+                  f"CFS_GF_PIPELINED={env}: other kernels launched: {counts}")
+            launches[name] = counts[name]
+
+    replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
+                "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
+                                   "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
+                "gf_matmul_pipe_static": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
+                                          "chubaofs_tpu/ops/pallas_gf_pipe.py:148")}
+    line = [{
+        "name": name,
         "route": "cuda",
-        "source": "chubaofs_tpu_torch/ops/csrc/gf_matmul.cu",
-        "replaces": "chubaofs_tpu/ops/pallas_gf.py:85",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_rec["kernel_ms"],
+        "source": src,
+        "replaces": rep,
+        "launches": launches[name],
+        "max_abs_err": max_err[name],
+        "ms": main_rec["kernels"][name]["ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_us"] / 1e3,
         "bound_by": main_rec["bound_by"],
         "library_ms": None,
-    }]
+    } for name, (src, rep) in replaces.items()]
+    log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": line}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

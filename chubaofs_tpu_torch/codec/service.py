@@ -99,7 +99,7 @@ class CodecService:
         if mesh is not None:
             raise NotImplementedError(
                 "CodecService(mesh=...) is not ported: multi-GPU dispatch is "
-                "ROADMAP item A9")
+                "ROADMAP §A item 4")
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.device = rs.resolve_device(device)

@@ -79,21 +79,22 @@ def _nvcc() -> str:
         if c and os.path.isfile(c):
             return c
     raise RuntimeError(
-        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the GF(2^8) CUDA "
-        "kernel is built from ops/csrc/gf_matmul.cu at first use")
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the port's CUDA "
+        "kernels are built from ops/csrc/*.cu at first use")
 
 
-def build() -> Path:
-    """Compile the kernel into BUILD_DIR (keyed by source + flags), once."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def build_library(source: Path, info: dict) -> Path:
+    """Compile one kernel source into BUILD_DIR (keyed by source + flags),
+    once, and record what the build did in `info`."""
+    tag = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"gf_matmul_{tag}.so"
+    lib_path = BUILD_DIR / f"{source.stem}_{tag}.so"
     if lib_path.exists():
-        BUILD_INFO.update(seconds=0.0, path=str(lib_path), ptxas="(cached)")
+        info.update(seconds=0.0, path=str(lib_path), ptxas="(cached)")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".gf_matmul_{tag}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = BUILD_DIR / f".{source.stem}_{tag}.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -102,9 +103,14 @@ def build() -> Path:
             f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)  # atomic: a concurrent build never loads half a file
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib_path),
-                      ptxas=(proc.stdout + proc.stderr).strip())
+    info.update(seconds=time.perf_counter() - t0, path=str(lib_path),
+                ptxas=(proc.stdout + proc.stderr).strip())
     return lib_path
+
+
+def build() -> Path:
+    """Compile this module's kernel (gf_matmul.cu), once."""
+    return build_library(SOURCE, BUILD_INFO)
 
 
 def load():

@@ -16,9 +16,13 @@ Matrices travel in the byte-major (8r, 8n) GF(2) bit-matrix form
 bits, the CUDA kernel reads the coefficients back out of them. Data tensors
 live on the caller's device:
 
-  * a CUDA tensor goes to the hand-written kernel (ops/cuda_gf.py), which
-    launches or raises — there is no fallback;
-  * a CPU tensor goes to the plain PyTorch version, gf_matmul_bytes.
+  * a CUDA tensor goes to a hand-written kernel, which launches or raises —
+    there is no fallback: B1 (ops/cuda_gf.py) by default, B2, the
+    double-buffered kernel (ops/cuda_gf_pipe.py), when CFS_GF_PIPELINED is
+    "1" (dynamic slots) or "static" (static slots), read on every call as
+    the JAX package's dispatcher reads it;
+  * a CPU tensor goes to the plain PyTorch version, gf_matmul_bytes, whatever
+    CFS_GF_PIPELINED says (the JAX package too takes the kernels off the TPU).
 
 Batching: all kernels take (..., n, k) with arbitrary leading batch dims; the
 bulk-repair path stacks many stripes into one call.
@@ -27,12 +31,13 @@ bulk-repair path stacks many stripes into one call.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from chubaofs_tpu_torch import chaos
-from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, gf256
+from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, cuda_gf_pipe, gf256
 
 BITS = 8
 
@@ -98,23 +103,24 @@ def gf_matmul_bytes(mat_bits, shards: torch.Tensor) -> torch.Tensor:
     returns:  (..., r, k) uint8 = GFmat @ shards, per batch element.
 
     unpack -> bit product -> & 1 -> pack, as the JAX package's XLA lowering.
-    On the CPU the product runs in int32 (an int8 matmul would accumulate in
-    int8). CUDA has no integer matmul, so there it runs in float32 on {0,1}
-    values: exact, since every sum is <= 8n < 2^24 and 0/1 survive even TF32's
-    input rounding (chip_smoke.py sets allow_tf32 = False all the same)."""
+    The product runs in float32 on {0,1} values on every device (CUDA has no
+    integer matmul, and on the CPU float32 BLAS is ~3x an int32 matmul):
+    exact, since every sum is <= 8n < 2^24 and 0/1 survive even TF32's input
+    rounding (chip_smoke.py sets allow_tf32 = False all the same)."""
     mat = mat_tensor(mat_bits).to(shards.device)
     bits = unpack_bits(shards)
-    if shards.device.type == "cuda":
-        acc = torch.matmul(mat.to(torch.float32), bits.to(torch.float32))
-        acc = acc.to(torch.int32)
-    else:
-        acc = torch.matmul(mat.to(torch.int32), bits.to(torch.int32))
-    return pack_bits(acc & 1)
+    acc = torch.matmul(mat.to(torch.float32), bits.to(torch.float32))
+    return pack_bits(acc.to(torch.int32) & 1)
 
 
 def gf_matmul_dispatch(mat_bits, shards: torch.Tensor) -> torch.Tensor:
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """A kernel for a CUDA tensor (B2 when CFS_GF_PIPELINED is "1" or
+    "static", else B1), the plain version for a CPU tensor."""
     if shards.device.type == "cuda":
+        pipe = os.environ.get("CFS_GF_PIPELINED", "")
+        if pipe in ("1", "static"):
+            return cuda_gf_pipe.gf_matmul_bytes_pipelined(
+                mat_bits, shards, static_slots=pipe == "static")
         return cuda_gf.gf_matmul(mat_bits, shards)
     if shards.device.type == "cpu":
         return gf_matmul_bytes(mat_bits, shards)

@@ -1,7 +1,7 @@
-"""The CUDA kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch version.
 
-These tests need an NVIDIA GPU with nvcc (they build ops/csrc/gf_matmul.cu);
-elsewhere they skip. On the GPU machine run them with
+These tests need an NVIDIA GPU with nvcc (they build ops/csrc/gf_matmul.cu,
+B1, and ops/csrc/gf_matmul_pipe.cu, B2); elsewhere they skip. On the GPU machine run them with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda`
 (tests/conftest.py imports jax, which the port's machine need not have;
 this file needs none of its fixtures).
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, gf256, rs
+from chubaofs_tpu_torch.ops import bitmatrix, cuda_gf, cuda_gf_pipe, gf256, rs
 
 pytestmark = pytest.mark.cuda
 
@@ -23,11 +23,14 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("r,n,lead,k", [
+SHAPES = [
     (4, 12, (3,), 4096), (3, 6, (), 1000), (22, 16, (2, 2), 12345),
     (30, 30, (3,), 777), (0, 6, (2,), 256), (40, 50, (1,), 300),
     (2, 1600, (1,), 64),
-])
+]
+
+
+@pytest.mark.parametrize("r,n,lead,k", SHAPES)
 def test_kernel_equals_plain_on_card(dev, r, n, lead, k):
     rng = np.random.default_rng(r * 1000 + n)
     coef = rng.integers(0, 256, (r, n), dtype=np.uint8)
@@ -51,3 +54,98 @@ def test_kernel_rejects_non_contiguous(dev):
     x = torch.zeros((4, 64), dtype=torch.uint8, device=dev)[:, ::2]
     with pytest.raises(ValueError):
         cuda_gf.gf_matmul(bits, x)
+
+
+# -- B2, the double-buffered kernel ----------------------------------------------
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("r,n,lead,k", SHAPES + [(4, 12, (16,), 1 << 20)])
+def test_pipe_kernel_equals_plain_on_card(dev, r, n, lead, k, static):
+    rng = np.random.default_rng(r * 1000 + n)
+    coef = rng.integers(0, 256, (r, n), dtype=np.uint8)
+    bits = bitmatrix.expand_matrix(coef).astype(np.int8)
+    x = torch.from_numpy(rng.integers(0, 256, (*lead, n, k), dtype=np.uint8)).to(dev)
+    variant = "static" if static else "dynamic"
+    before = cuda_gf_pipe.LAUNCHES[variant]
+    got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, static_slots=static)
+    want = rs.gf_matmul_bytes(bits, x)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, r, k)
+    assert torch.equal(got, want)
+    assert cuda_gf_pipe.LAUNCHES[variant] - before == (len(cuda_gf.blocks(r, n)) if r else 0)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("k", [1, 15, 17, 128, 256, 300, 384, 511, 512, 513, 640])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_pipe_kernel_tiles_tails_and_bases(dev, k, offset, static):
+    """tile_k=128 on one SM's worth of grid: 1, 2, 3 and 5 tiles per CTA,
+    k under one tile, span boundaries +-1, and row bases at odd and 4-byte
+    offsets (a slice made contiguous at that offset)."""
+    rng = np.random.default_rng(k * 10 + offset)
+    bits = rs.get_kernel(6, 3, dev).parity_bits
+    b, n = 2, 6
+    flat = torch.from_numpy(rng.integers(0, 256, b * n * k + offset, dtype=np.uint8)).to(dev)
+    x = flat[offset:].view(b, n, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset % 16
+    want = rs.gf_matmul_bytes(bits, x)
+    for sms in (1, 132):
+        got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, tile_k=128, static_slots=static,
+                                                     sms=sms)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k, offset, sms)
+
+
+def test_pipe_kernel_group_stacked_matrix(dev):
+    rng = np.random.default_rng(5)
+    ker = rs.get_kernel(4, 2, dev)
+    b, g, n, k = 4, 2, 4, 384
+    host = rng.integers(0, 256, (b, n, k), dtype=np.uint8)
+    mat_s = np.kron(np.eye(g, dtype=np.int8), rs.to_numpy(ker.parity_bits))
+    want = rs.gf_matmul_bytes(ker.parity_bits, torch.from_numpy(host))
+    for static in (False, True):
+        got = cuda_gf_pipe.gf_matmul_bytes_pipelined(
+            mat_s, torch.from_numpy(host.reshape(b // g, g * n, k)).to(dev), tile_k=128,
+            static_slots=static, sms=1)
+        assert torch.equal(got.cpu().reshape(b, 2, k), want)
+
+
+def test_dispatch_follows_cfs_gf_pipelined_on_card(dev, monkeypatch):
+    bits = rs.get_kernel(6, 3, dev).parity_bits
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 6, 4096), dtype=np.uint8)).to(dev)
+    want = rs.gf_matmul_bytes(bits, x)
+    for env, counter in (("1", "dynamic"), ("static", "static"), ("", None)):
+        monkeypatch.setenv("CFS_GF_PIPELINED", env)
+        b1, b2 = cuda_gf.LAUNCHES, dict(cuda_gf_pipe.LAUNCHES)
+        got = rs.gf_matmul_dispatch(bits, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if counter:
+            assert cuda_gf.LAUNCHES == b1 and cuda_gf_pipe.LAUNCHES[counter] == b2[counter] + 1
+        else:
+            assert cuda_gf.LAUNCHES == b1 + 1 and cuda_gf_pipe.LAUNCHES == b2
+
+
+def test_pipe_kernel_rejects_non_contiguous(dev):
+    bits = rs.get_kernel(4, 2, dev).parity_bits
+    x = torch.zeros((4, 64), dtype=torch.uint8, device=dev)[:, ::2]
+    with pytest.raises(ValueError):
+        cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x)
+
+
+def test_pipe_failure_raises_instead_of_falling_back(dev, monkeypatch):
+    """Under CFS_GF_PIPELINED=1 a B2 that cannot build raises: neither B1 nor
+    the plain version steps in."""
+    def broken_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setenv("CFS_GF_PIPELINED", "1")
+    monkeypatch.setattr(cuda_gf_pipe, "_lib", None)
+    monkeypatch.setattr(cuda_gf_pipe, "load", broken_build)
+    bits = rs.get_kernel(6, 3, dev).parity_bits
+    x = torch.zeros((2, 6, 4096), dtype=torch.uint8, device=dev)
+    b1 = cuda_gf.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        rs.gf_matmul_dispatch(bits, x)
+    assert cuda_gf.LAUNCHES == b1
