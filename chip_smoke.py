@@ -12,13 +12,16 @@ result line:
   1. build  every kernel of the port from the sources in this checkout, one
             nvcc per source, all started together (ops/csrc/gf_matmul.cu, B1;
             ops/csrc/gf_matmul_pipe.cu, B2; into build/kernels/), and print
-            each ptxas report;
+            each ptxas report and, per instantiation, its registers, spills,
+            stack and shared memory;
   2. kernel vs plain: each kernel's wrapper on the card (B1, B2 with dynamic
             slots, B2 with static slots) against the plain PyTorch version on
             the same inputs, byte-equal (tolerance 0: GF(2^8) math is exact),
             for every matrix kind of the main path, unaligned k, batch dims
-            and r = 0, each with its time, the plain version's time and the
-            bound;
+            and r = 0, each with its time, the plain version's time, the
+            bound and B2's time over B1's. A kernel runs only the cases it
+            accepts: a GF(2) matrix that is not the expansion of a GF(2^8)
+            one is B2's alone (B1 rejects it by design);
   3. codec path: CodecService(device="cuda") serves the blobstore's device
             work from concurrent submitter threads at the blobstore's sizes
             (PUT encodes, degraded reconstruct, bulk repair, LRC archive
@@ -49,6 +52,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,9 +113,27 @@ def check(cond: bool, what: str) -> None:
 # -- phase 2 --------------------------------------------------------------------
 
 
+def ptxas_summary(report: str) -> list[str]:
+    """One line per compiled kernel of an nvcc -Xptxas=-v report: its
+    template arguments, registers, spills, stack and shared memory."""
+    kernels: dict[str, list[str]] = {}
+    name = None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            m = re.search(r"(?<=\d)(gf_[a-z_]*kernel)I((?:L[ib]\d+E)+)E", mangled)
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
+            name = f"{m.group(1)}<{','.join(args)}>" if m else mangled
+            kernels[name] = []
+        elif name and ("spill" in ln or "Used" in ln):
+            kernels[name].append(ln.split(":", 1)[-1].strip() if "Used" in ln else ln.strip())
+    return [f"{k}: {'; '.join(v)}" for k, v in kernels.items()]
+
+
 def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
-    """(name, GF(2^8) matrix, leading dims, k): every matrix kind the main
-    path multiplies by, at the shapes it feeds them."""
+    """(name, matrix, leading dims, k): every matrix kind the main path
+    multiplies by, at the shapes it feeds them. The matrix is a GF(2^8) one,
+    except for the last case, a GF(2) bit matrix that is no expansion."""
     k12 = rs.get_kernel(12, 4, "cpu")
     k63 = rs.get_kernel(6, 3, "cpu")
     pmk = pm.get_kernel(12, 6)
@@ -135,19 +157,25 @@ def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
         ("rg6p6_parity", pmk.parity_mat, (4,), pm_k),
         ("rg6p6_decode", pmk.decode_matrix([1, 2, 4, 6, 8, 11], [0, 3, 5]), (2,), pm_k),
         ("empty_r0", np.zeros((0, 6), np.uint8), (2,), 256),
+        ("gf2_nonexpansion", np.random.default_rng(2).integers(0, 2, (8 * 4, 8 * 12), dtype=np.int8),
+         (16,), 1 * MiB),
     ]
 
 
-def phase_kernels(kernels: dict, rs, bitmatrix, blocks, cases) -> tuple[list[dict], dict]:
+def phase_kernels(kernels: dict, rs, bitmatrix, cases, smem_of) -> tuple[list[dict], dict]:
     """Each kernel against the plain version on the card. kernels maps a name
-    to (wrapper, launch counter); blocks is cuda_gf.blocks (launches per call). Returns per-case records and, per kernel,
-    the max absolute byte difference over all cases (0 when they agree)."""
+    to (wrapper, launch counter, block plan, takes any GF(2) matrix); a call
+    launches once per block of the kernel's own plan. smem_of(r, n, k) gives
+    B2's (tile, dynamic shared memory) per launch. Returns per-case records
+    and, per kernel, the max absolute byte difference over all cases (0 when
+    they agree)."""
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     records, max_err = [], {name: 0 for name in kernels}
     for name, mat, lead, k in cases:
-        r, n = mat.shape
-        bits = bitmatrix.expand_matrix(mat).astype(np.int8)
+        expansion = not name.startswith("gf2_")  # a gf2_ case's matrix is its bit matrix
+        bits = bitmatrix.expand_matrix(mat).astype(np.int8) if expansion else mat
+        r, n = bits.shape[0] // 8, bits.shape[1] // 8
         x = torch.from_numpy(rng.integers(0, 256, (*lead, n, k), dtype=np.uint8)).to(dev)
         want = rs.gf_matmul_bytes(bits, x)
         torch.cuda.synchronize()
@@ -155,8 +183,10 @@ def phase_kernels(kernels: dict, rs, bitmatrix, blocks, cases) -> tuple[list[dic
         payload = b * (n + r) * k
         bms, by = bound_ms(b, n, r, k)
         rec = {"case": name, "b": b, "n": n, "r": r, "k": k, "bound_us": bms * 1e3,
-               "bound_by": by, "kernels": {}}
-        for kname, (fn, count) in kernels.items():
+               "bound_by": by, "b2_tile_smem": smem_of(r, n, k) if r else [], "kernels": {}}
+        for kname, (fn, count, blocks, any_bits) in kernels.items():
+            if not (expansion or any_bits):
+                continue
             before = count()
             got = fn(bits, x)
             torch.cuda.synchronize()
@@ -172,6 +202,9 @@ def phase_kernels(kernels: dict, rs, bitmatrix, blocks, cases) -> tuple[list[dic
             rec["kernels"][kname] = {"equal": True, "launches_per_call": launches, "ms": k_ms,
                                      "GBps": payload / (k_ms * 1e-3) / 1e9 if k_ms else None}
         del want
+        b1_ms = rec["kernels"].get("gf_matmul", {}).get("ms")
+        rec["over_b1"] = {kn: kr["ms"] / b1_ms for kn, kr in rec["kernels"].items()
+                          if b1_ms and kn != "gf_matmul"}
         rec["plain_ms"] = time_ms(lambda: rs.gf_matmul_bytes(bits, x), 2) if r else 0.0
         torch.cuda.empty_cache()
         records.append(rec)
@@ -555,19 +588,29 @@ def main() -> int:
     for lib in (cuda_gf, cuda_gf_pipe):
         log(f"build: {lib.__name__} {lib.BUILD_INFO['seconds']:.2f} s -> {lib.BUILD_INFO['path']}")
         log(lib.BUILD_INFO["ptxas"])
+        for line in ptxas_summary(lib.BUILD_INFO["ptxas"]):
+            log(f"ptxas {lib.__name__}: {line}")
 
     # phase 2: each kernel against its plain version
     t0 = time.perf_counter()
     kernels = {
-        "gf_matmul": (cuda_gf.gf_matmul, lambda: cuda_gf.LAUNCHES),
+        "gf_matmul": (cuda_gf.gf_matmul, lambda: cuda_gf.LAUNCHES, cuda_gf.blocks, False),
         "gf_matmul_pipe": (lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x),
-                           lambda: cuda_gf_pipe.LAUNCHES["dynamic"]),
+                           lambda: cuda_gf_pipe.LAUNCHES["dynamic"], cuda_gf_pipe.blocks, True),
         "gf_matmul_pipe_static": (
             lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x, static_slots=True),
-            lambda: cuda_gf_pipe.LAUNCHES["static"]),
+            lambda: cuda_gf_pipe.LAUNCHES["static"], cuda_gf_pipe.blocks, True),
     }
+    def b2_smem(r, n, k):
+        """B2's shared memory is dynamic: (kt, bytes) of each launch of its plan."""
+        out = []
+        for r0, r1, j0, j1 in cuda_gf_pipe.blocks(r, n):
+            kt = cuda_gf_pipe.pick_tile(r1 - r0, j1 - j0, k)
+            out.append((kt, cuda_gf_pipe.smem_bytes(r1 - r0, j1 - j0, kt)))
+        return out
+
     cases = kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic)
-    records, max_err = phase_kernels(kernels, rs, bitmatrix, cuda_gf.blocks, cases)
+    records, max_err = phase_kernels(kernels, rs, bitmatrix, cases, b2_smem)
     main_rec = records[0]  # ec12p4_parity_bucket: what the service launches for FLAGSHIP
     wall["2_kernel_vs_plain"] = time.perf_counter() - t0
 

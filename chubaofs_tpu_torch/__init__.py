@@ -8,7 +8,7 @@ same relative path, so every module's counterpart is found by path.
 Layout (slices 1 and 2: the codec plane and the blobstore access path):
     ops/        GF(2^8) tables, the bit-matrix lowering, the RS kernel API and
                 the hand-written Hopper GF(2^8) matmul kernels (ops/csrc):
-                B1 (cuda_gf) and the double-buffered B2 (cuda_gf_pipe)
+                B1 (cuda_gf) and the pipelined tensor-core B2 (cuda_gf_pipe)
     codec/      code modes, RS / LRC / product-matrix encoders, CodecService
     models/     the codec "model zoo" (FLAGSHIP, ARCHIVE)
     blobstore/  access gateway, clustermgr, blobnode, proxy, cache, scheduler,

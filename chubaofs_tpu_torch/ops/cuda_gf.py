@@ -84,9 +84,11 @@ def _nvcc() -> str:
 
 
 def build_library(source: Path, info: dict) -> Path:
-    """Compile one kernel source into BUILD_DIR (keyed by source + flags),
-    once, and record what the build did in `info`."""
-    tag = hashlib.sha256(source.read_bytes()
+    """Compile one kernel source into BUILD_DIR (keyed by the source, the
+    headers beside it and the flags), once, and record what the build did in
+    `info`."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    tag = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{source.stem}_{tag}.so"
     if lib_path.exists():

@@ -12,15 +12,15 @@ gen[missing] @ inv(gen[survivors]) (reconstruct), computed on the host in numpy
 ONE compiled kernel serves every encode, decode and repair pattern.
 
 Matrices travel in the byte-major (8r, 8n) GF(2) bit-matrix form
-(ops/bitmatrix.py) and stay on the host: the plain version multiplies by the
-bits, the CUDA kernel reads the coefficients back out of them. Data tensors
-live on the caller's device:
+(ops/bitmatrix.py) and stay on the host: the plain version and B2 multiply
+by the bits, B1 reads the GF(2^8) coefficients back out of them. Data
+tensors live on the caller's device:
 
   * a CUDA tensor goes to a hand-written kernel, which launches or raises —
-    there is no fallback: B1 (ops/cuda_gf.py) by default, B2, the
-    double-buffered kernel (ops/cuda_gf_pipe.py), when CFS_GF_PIPELINED is
-    "1" (dynamic slots) or "static" (static slots), read on every call as
-    the JAX package's dispatcher reads it;
+    there is no fallback: B1 (ops/cuda_gf.py) by default, B2, the pipelined
+    tensor-core kernel (ops/cuda_gf_pipe.py), when CFS_GF_PIPELINED is "1"
+    (dynamic slots) or "static" (static slots), read on every call as the
+    JAX package's dispatcher reads it;
   * a CPU tensor goes to the plain PyTorch version, gf_matmul_bytes, whatever
     CFS_GF_PIPELINED says (the JAX package too takes the kernels off the TPU).
 

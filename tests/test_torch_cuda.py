@@ -56,11 +56,11 @@ def test_kernel_rejects_non_contiguous(dev):
         cuda_gf.gf_matmul(bits, x)
 
 
-# -- B2, the double-buffered kernel ----------------------------------------------
+# -- B2, the pipelined tensor-core kernel -----------------------------------------
 
 
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("r,n,lead,k", SHAPES + [(4, 12, (16,), 1 << 20)])
+@pytest.mark.parametrize("r,n,lead,k", SHAPES + [(4, 12, (16,), 1 << 20), (1, 12, (5,), 7777)])
 def test_pipe_kernel_equals_plain_on_card(dev, r, n, lead, k, static):
     rng = np.random.default_rng(r * 1000 + n)
     coef = rng.integers(0, 256, (r, n), dtype=np.uint8)
@@ -73,16 +73,17 @@ def test_pipe_kernel_equals_plain_on_card(dev, r, n, lead, k, static):
     torch.cuda.synchronize()
     assert got.shape == (*lead, r, k)
     assert torch.equal(got, want)
-    assert cuda_gf_pipe.LAUNCHES[variant] - before == (len(cuda_gf.blocks(r, n)) if r else 0)
+    assert cuda_gf_pipe.LAUNCHES[variant] - before == (len(cuda_gf_pipe.blocks(r, n)) if r else 0)
 
 
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("k", [1, 15, 17, 128, 256, 300, 384, 511, 512, 513, 640])
+@pytest.mark.parametrize("k", [1, 15, 17, 128, 256, 300, 384, 511, 512, 513, 640, 768, 1023, 1280])
 @pytest.mark.parametrize("offset", [0, 1, 4])
 def test_pipe_kernel_tiles_tails_and_bases(dev, k, offset, static):
-    """tile_k=128 on one SM's worth of grid: 1, 2, 3 and 5 tiles per CTA,
-    k under one tile, span boundaries +-1, and row bases at odd and 4-byte
-    offsets (a slice made contiguous at that offset)."""
+    """tile_k=256 on one SM's worth of grid and on the whole card: 1, 2, 3
+    and 5 tiles per stripe, k under one tile, tile boundaries +-1, and row
+    bases at odd and 4-byte offsets (a slice made contiguous at that
+    offset)."""
     rng = np.random.default_rng(k * 10 + offset)
     bits = rs.get_kernel(6, 3, dev).parity_bits
     b, n = 2, 6
@@ -91,7 +92,7 @@ def test_pipe_kernel_tiles_tails_and_bases(dev, k, offset, static):
     assert x.is_contiguous() and x.data_ptr() % 16 == offset % 16
     want = rs.gf_matmul_bytes(bits, x)
     for sms in (1, 132):
-        got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, tile_k=128, static_slots=static,
+        got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, tile_k=256, static_slots=static,
                                                      sms=sms)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (k, offset, sms)
@@ -106,9 +107,42 @@ def test_pipe_kernel_group_stacked_matrix(dev):
     want = rs.gf_matmul_bytes(ker.parity_bits, torch.from_numpy(host))
     for static in (False, True):
         got = cuda_gf_pipe.gf_matmul_bytes_pipelined(
-            mat_s, torch.from_numpy(host.reshape(b // g, g * n, k)).to(dev), tile_k=128,
+            mat_s, torch.from_numpy(host.reshape(b // g, g * n, k)).to(dev), tile_k=256,
             static_slots=static, sms=1)
         assert torch.equal(got.cpu().reshape(b, 2, k), want)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("r,n,k", [(5, 7, 1000), (4, 12, 65536), (30, 30, 4099), (1, 9, 3001),
+                                   (2, 20, 2048)])
+def test_pipe_kernel_non_expansion_matrix(dev, r, n, k, static):
+    """Any GF(2) matrix, as the TPU kernel takes it; B1 rejects these."""
+    rng = np.random.default_rng(r * 100 + n)
+    bits = rng.integers(0, 2, (8 * r, 8 * n), dtype=np.int8)
+    x = torch.from_numpy(rng.integers(0, 256, (3, n, k), dtype=np.uint8)).to(dev)
+    got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, static_slots=static)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rs.gf_matmul_bytes(bits, x))
+    with pytest.raises(ValueError):
+        cuda_gf.gf_matmul(bits, x)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("r,n,k", [(70, 20, 5000), (3, 300, 1000), (66, 130, 700)])
+def test_pipe_kernel_past_its_budget(dev, r, n, k, static):
+    """Shapes past B2's operand budget: row blocks, column blocks that
+    accumulate, and both."""
+    rng = np.random.default_rng(r + n)
+    coef = rng.integers(0, 256, (r, n), dtype=np.uint8)
+    bits = bitmatrix.expand_matrix(coef).astype(np.int8)
+    assert len(cuda_gf_pipe.blocks(r, n)) > 1
+    x = torch.from_numpy(rng.integers(0, 256, (2, n, k), dtype=np.uint8)).to(dev)
+    variant = "static" if static else "dynamic"
+    before = cuda_gf_pipe.LAUNCHES[variant]
+    got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, static_slots=static)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rs.gf_matmul_bytes(bits, x))
+    assert cuda_gf_pipe.LAUNCHES[variant] - before == len(cuda_gf_pipe.blocks(r, n))
 
 
 def test_dispatch_follows_cfs_gf_pipelined_on_card(dev, monkeypatch):
