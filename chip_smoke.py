@@ -19,9 +19,11 @@ result line:
             the same inputs, byte-equal (tolerance 0: GF(2^8) math is exact),
             for every matrix kind of the main path, unaligned k, batch dims
             and r = 0, each with its time, the plain version's time, the
-            bound and B2's time over B1's. A kernel runs only the cases it
-            accepts: a GF(2) matrix that is not the expansion of a GF(2^8)
-            one is B2's alone (B1 rejects it by design);
+            bound and B2's time over B1's. Every kernel runs every case, a
+            GF(2) matrix that is not the expansion of a GF(2^8) one included
+            (both take any GF(2) matrix, as the TPU kernel does). Where the
+            toolkit has cuobjdump, B1's SASS is counted per opcode in the
+            inner loop of each instantiation;
   3. codec path: CodecService(device="cuda") serves the blobstore's device
             work from concurrent submitter threads at the blobstore's sizes
             (PUT encodes, degraded reconstruct, bulk repair, LRC archive
@@ -53,6 +55,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -130,10 +133,50 @@ def ptxas_summary(report: str) -> list[str]:
     return [f"{k}: {'; '.join(v)}" for k, v in kernels.items()]
 
 
+def sass_loops(lib_path: str) -> list[str]:
+    """Per B1 instantiation, the opcodes of its innermost loop that looks
+    bytes up (the smallest span from a backward branch's target to the
+    branch that holds a PRMT), counted in the library's SASS (cuobjdump
+    -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return ["cuobjdump not found: no SASS counts"]
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120)
+    out = []
+    for fn in proc.stdout.split("Function : ")[1:]:
+        m = re.search(r"(gf_[a-z_]*kernel)I((?:L[ib]\d+E)+)E", fn.split("\n", 1)[0])
+        if not m:
+            continue
+        name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+        ops, at, loops = [], {}, []
+        for ln in fn.splitlines():
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", ln)
+            if not ins:
+                continue
+            at[int(ins.group(1), 16)] = len(ops)
+            ops.append(ins.group(2).split(".")[0])
+            tgt = re.search(r"0x([0-9a-f]+)\s*;", ins.group(3))
+            if ops[-1] == "BRA" and tgt and int(tgt.group(1), 16) in at:  # a branch back
+                loops.append((at[int(tgt.group(1), 16)], len(ops)))
+        inner = [(b, e) for b, e in loops if "PRMT" in ops[b:e]]
+        if not inner:
+            out.append(f"{name}: no loop with PRMT found")
+            continue
+        b, e = min(inner, key=lambda be: be[1] - be[0])
+        hist: dict[str, int] = {}
+        for op in ops[b:e]:
+            hist[op] = hist.get(op, 0) + 1
+        out.append(f"{name}: {e - b} instructions per iteration "
+                   + json.dumps(dict(sorted(hist.items(), key=lambda kv: -kv[1]))))
+    return out
+
+
 def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
     """(name, matrix, leading dims, k): every matrix kind the main path
     multiplies by, at the shapes it feeds them. The matrix is a GF(2^8) one,
-    except for the last case, a GF(2) bit matrix that is no expansion."""
+    except for the last case, a GF(2) bit matrix that is no expansion (every
+    kernel takes it)."""
     k12 = rs.get_kernel(12, 4, "cpu")
     k63 = rs.get_kernel(6, 3, "cpu")
     pmk = pm.get_kernel(12, 6)
@@ -155,6 +198,9 @@ def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
         ("ec16p20l2_lrc", lrc_parity_matrix(get_tactic("EC16P20L2")), (2,), 1 * MiB),
         ("ec20p4l2_lrc", lrc_parity_matrix(get_tactic("EC20P4L2")), (1,), 1 * MiB),
         ("rg6p6_parity", pmk.parity_mat, (4,), pm_k),
+        # aligned twins of an unaligned case and of the main path's shape at odd k
+        ("rg6p6_parity_k16", pmk.parity_mat, (4,), pm_k // 16 * 16),
+        ("ec12p4_parity_bucket_odd", k12.gen[12:], (16,), 1 * MiB - 3),
         ("rg6p6_decode", pmk.decode_matrix([1, 2, 4, 6, 8, 11], [0, 3, 5]), (2,), pm_k),
         ("empty_r0", np.zeros((0, 6), np.uint8), (2,), 256),
         ("gf2_nonexpansion", np.random.default_rng(2).integers(0, 2, (8 * 4, 8 * 12), dtype=np.int8),
@@ -164,7 +210,7 @@ def kernel_cases(rs, pm, cuda_gf, lrc_parity_matrix, get_tactic):
 
 def phase_kernels(kernels: dict, rs, bitmatrix, cases, smem_of) -> tuple[list[dict], dict]:
     """Each kernel against the plain version on the card. kernels maps a name
-    to (wrapper, launch counter, block plan, takes any GF(2) matrix); a call
+    to (wrapper, launch counter, block plan); a call
     launches once per block of the kernel's own plan. smem_of(r, n, k) gives
     B2's (tile, dynamic shared memory) per launch. Returns per-case records
     and, per kernel, the max absolute byte difference over all cases (0 when
@@ -184,9 +230,7 @@ def phase_kernels(kernels: dict, rs, bitmatrix, cases, smem_of) -> tuple[list[di
         bms, by = bound_ms(b, n, r, k)
         rec = {"case": name, "b": b, "n": n, "r": r, "k": k, "bound_us": bms * 1e3,
                "bound_by": by, "b2_tile_smem": smem_of(r, n, k) if r else [], "kernels": {}}
-        for kname, (fn, count, blocks, any_bits) in kernels.items():
-            if not (expansion or any_bits):
-                continue
+        for kname, (fn, count, blocks) in kernels.items():
             before = count()
             got = fn(bits, x)
             torch.cuda.synchronize()
@@ -590,16 +634,18 @@ def main() -> int:
         log(lib.BUILD_INFO["ptxas"])
         for line in ptxas_summary(lib.BUILD_INFO["ptxas"]):
             log(f"ptxas {lib.__name__}: {line}")
+    for line in sass_loops(cuda_gf.BUILD_INFO["path"]):
+        log(f"sass {cuda_gf.__name__}: {line}")
 
     # phase 2: each kernel against its plain version
     t0 = time.perf_counter()
     kernels = {
-        "gf_matmul": (cuda_gf.gf_matmul, lambda: cuda_gf.LAUNCHES, cuda_gf.blocks, False),
+        "gf_matmul": (cuda_gf.gf_matmul, lambda: cuda_gf.LAUNCHES, cuda_gf.blocks),
         "gf_matmul_pipe": (lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x),
-                           lambda: cuda_gf_pipe.LAUNCHES["dynamic"], cuda_gf_pipe.blocks, True),
+                           lambda: cuda_gf_pipe.LAUNCHES["dynamic"], cuda_gf_pipe.blocks),
         "gf_matmul_pipe_static": (
             lambda b, x: cuda_gf_pipe.gf_matmul_bytes_pipelined(b, x, static_slots=True),
-            lambda: cuda_gf_pipe.LAUNCHES["static"], cuda_gf_pipe.blocks, True),
+            lambda: cuda_gf_pipe.LAUNCHES["static"], cuda_gf_pipe.blocks),
     }
     def b2_smem(r, n, k):
         """B2's shared memory is dynamic: (kt, bytes) of each launch of its plan."""

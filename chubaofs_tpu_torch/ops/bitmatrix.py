@@ -9,8 +9,8 @@ where data bytes are unpacked to bits (LSB-first) along the contraction axis. Th
 mod-2 sum is computed with an ordinary matrix product (exact: row sums <= 8n)
 followed by a parity mask. The byte-major (8r, 8n) bit matrix is the public
 matrix format of ops/rs.py: the plain PyTorch lowering multiplies by it directly,
-and the CUDA kernel wrapper (ops/cuda_gf.py) reads the GF(2^8) coefficients back
-out of it (column 0 of each 8x8 block is bits(c * 1)).
+and the CUDA kernels' wrappers build their operands from it (ops/cuda_gf.py:
+split tables of each 8x8 block; ops/cuda_gf_pipe.py: MMA fragments).
 """
 
 from __future__ import annotations

@@ -6,11 +6,13 @@ card and the design. This module:
 
   * builds the source with nvcc into build/kernels/ at first use (a plain C
     interface loaded with ctypes) and raises if the build fails;
-  * reads the GF(2^8) coefficients back out of the byte-major (8r, 8n) bit
-    matrix the public API takes (c[i, j] = sum_b M_bits[8i+b, 8j] << b),
-    rejects a bit matrix that is not the expansion of a GF(2^8) matrix, and
-    builds the split-nibble product tables the kernel stages in shared
-    memory, cached per matrix on each device;
+  * builds, from the byte-major (8r, 8n) bit matrix the public API takes,
+    the split tables the kernel stages in shared memory (split_tables: the
+    byte map of each 8x8 block at the values of a byte's bit fields [0, 3),
+    [3, 6) and [6, 8)), cached per matrix on each device. Any GF(2) matrix
+    works, as on the TPU: the tables need only that each block is linear;
+  * picks the kernel's output rows per pass (row_tile) and whether its
+    rows are 16-byte aligned;
   * splits a matrix whose tables exceed the kernel's shared-memory budget into
     row blocks (GF products are row-separable) and, past that, column blocks
     whose products the kernel XOR-accumulates into the output;
@@ -39,10 +41,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chubaofs_tpu_torch.ops import bitmatrix, gf256
+from chubaofs_tpu_torch.ops import bitmatrix
 
 BITS = 8
-TAB_BYTES = 32  # per coefficient: 16 low-nibble + 16 high-nibble products
+TAB_BYTES = 32  # per block: T0 (8 B), T1 (8 B), T2 (4 B), 12 B of zeros
 # tables per launch, in shared memory: must match kMaxSmem in gf_matmul.cu
 SMEM_BUDGET = 48 * 1024
 MAX_COEFFS = SMEM_BUDGET // TAB_BYTES
@@ -122,7 +124,7 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.gf_matmul_launch.argtypes = [p, p, p, ll, i, i, ll, ll, ll, i, i, p]
+            lib.gf_matmul_launch.argtypes = [p, p, p, ll, i, i, ll, ll, ll, i, i, i, p]
             lib.gf_matmul_launch.restype = i
             lib.gf_error_string.argtypes = [i]
             lib.gf_error_string.restype = ctypes.c_char_p
@@ -137,8 +139,8 @@ def coefficients(mat_bits) -> np.ndarray:
     """(8r, 8n) byte-major GF(2) bit matrix -> its (r, n) GF(2^8) matrix.
 
     Column 0 of block (i, j) is bits(c_ij * 1); the rest of the block must be
-    what bitmatrix.expand_matrix makes of c_ij, or this raises: the kernel
-    multiplies by coefficients, so it cannot apply an arbitrary GF(2) map."""
+    what bitmatrix.expand_matrix makes of c_ij, or this raises. A utility for
+    building test matrices: the kernel takes any bit matrix (split_tables)."""
     bits = np.asarray(mat_bits)
     if bits.ndim != 2 or bits.shape[0] % BITS or bits.shape[1] % BITS:
         raise ValueError(f"want an (8r, 8n) bit matrix, got {bits.shape}")
@@ -151,15 +153,39 @@ def coefficients(mat_bits) -> np.ndarray:
     return coef
 
 
-def nibble_tables(coef: np.ndarray) -> np.ndarray:
-    """(r, n) GF(2^8) matrix -> (r, n, 32) uint8 split-nibble tables:
-    [c * v for v in 0..15] then [c * (v << 4) for v in 0..15]."""
-    mt = gf256.mul_table()
-    v = np.arange(16)
-    coef = np.asarray(coef, np.uint8)
-    lo = mt[coef[..., None], v]
-    hi = mt[coef[..., None], v << 4]
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=-1))
+# the values at which each block's byte map is tabulated: T0[v] = L(v) and
+# T1[v] = L(v << 3) for v < 8, T2[v] = L(v << 6) for v < 4
+TABLE_VALUES = np.concatenate([np.arange(8), np.arange(8) << 3, np.arange(4) << 6])
+
+
+def split_tables(mat_bits) -> np.ndarray:
+    """(8r, 8n) byte-major GF(2) bit matrix -> (r, n, 32) uint8 split tables.
+
+    Block (i, j) maps a byte x to L(x), output bit p = XOR_q M[8i+p, 8j+q]
+    * bit q of x. Its row holds L at TABLE_VALUES (T0, T1, T2: 20 bytes),
+    then 12 zero bytes; L(x) = T0[x & 7] ^ T1[(x >> 3) & 7] ^ T2[x >> 6]."""
+    bits = np.asarray(mat_bits)
+    if bits.ndim != 2 or bits.shape[0] % BITS or bits.shape[1] % BITS:
+        raise ValueError(f"want an (8r, 8n) bit matrix, got {bits.shape}")
+    r, n = bits.shape[0] // BITS, bits.shape[1] // BITS
+    blk = (bits.reshape(r, BITS, n, BITS) & 1).astype(np.int64)  # [i, p, j, q]
+    vbits = (TABLE_VALUES[:, None] >> np.arange(BITS)) & 1  # [v, q]
+    prod = np.einsum("ipjq,vq->ijvp", blk, vbits) & 1
+    tab = np.zeros((r, n, TAB_BYTES), np.uint8)
+    tab[:, :, :len(TABLE_VALUES)] = (prod << np.arange(BITS)).sum(axis=-1)
+    return tab
+
+
+def aligned(k: int, base_in: int, base_out: int) -> bool:
+    """Whether the launches take the aligned kernel: every row of the input
+    and the output starts on 16 bytes."""
+    return k % 16 == 0 and base_in % 16 == 0 and base_out % 16 == 0
+
+
+def row_tile(rows: int) -> int:
+    """Output rows the kernel keeps in registers per pass: 4 for the RS
+    encodes and repairs (r <= 4), else 8 (fewer re-walks of the inputs)."""
+    return 4 if rows <= 4 else 8
 
 
 def blocks(r: int, n: int) -> list[tuple[int, int, int, int]]:
@@ -183,10 +209,10 @@ def _plan(mat_bits, device: torch.device):
         if hit is not None:
             _plans.move_to_end(key)
             return hit
-    coef = coefficients(bits)
+    tables = split_tables(bits)
     plan = []
-    for r0, r1, j0, j1 in blocks(*coef.shape):
-        tab = torch.from_numpy(nibble_tables(coef[r0:r1, j0:j1])).to(device)
+    for r0, r1, j0, j1 in blocks(*tables.shape[:2]):
+        tab = torch.from_numpy(np.ascontiguousarray(tables[r0:r1, j0:j1])).to(device)
         plan.append((r0, r1, j0, j1, tab))
     with _plans_lock:
         _plans[key] = plan
@@ -199,11 +225,12 @@ def _plan(mat_bits, device: torch.device):
 
 
 def gf_matmul(mat_bits, shards: torch.Tensor) -> torch.Tensor:
-    """out = GF(2^8) matrix (x) shards on the card, through the kernel.
+    """out = M (x) shards on the card, through the kernel.
 
-    mat_bits: (8r, 8n) byte-major bit matrix (numpy or a tensor; read on the
-    host). shards: contiguous uint8 CUDA tensor (..., n, k). Returns a new
-    (..., r, k) uint8 tensor on the same device, on the current stream."""
+    mat_bits: (8r, 8n) byte-major GF(2) bit matrix, any such matrix (numpy or
+    a tensor; read on the host). shards: contiguous uint8 CUDA tensor
+    (..., n, k). Returns a new (..., r, k) uint8 tensor on the same device,
+    on the current stream."""
     global LAUNCHES
     if not isinstance(shards, torch.Tensor) or shards.device.type != "cuda":
         raise ValueError("cuda_gf.gf_matmul takes a CUDA tensor; CPU tensors "
@@ -228,12 +255,12 @@ def gf_matmul(mat_bits, shards: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(shards.device):
         stream = torch.cuda.current_stream(shards.device).cuda_stream
         base_in, base_out = shards.data_ptr(), out.data_ptr()
-        aligned = int(k % 16 == 0 and base_in % 16 == 0 and base_out % 16 == 0)
+        align = int(aligned(k, base_in, base_out))
         for r0, r1, j0, j1, tab in plan:
             rc = lib.gf_matmul_launch(
                 base_in + j0 * k, base_out + r0 * k, tab.data_ptr(),
                 b, j1 - j0, r1 - r0, k, n * k, r * k,
-                int(j0 > 0), aligned, stream)
+                int(j0 > 0), align, row_tile(r1 - r0), stream)
             if rc != 0:
                 raise RuntimeError(
                     f"gf_matmul_launch failed: {lib.gf_error_string(rc).decode()} "

@@ -16,10 +16,8 @@ built from first principles:
     kernel and the plain PyTorch lowering.
 
 These tables are setup-time data: the generator/decode matrices are built from
-them on the host, and the CUDA kernel (ops/csrc/gf_matmul.cu) multiplies by
-per-coefficient split-nibble product tables cut from mul_table() by
-ops/cuda_gf.py. The plain PyTorch path lowers GF(2^8) products to GF(2)
-bit-matrix products instead (ops/bitmatrix.py, ops/rs.py).
+them on the host and expanded to GF(2) bit matrices (ops/bitmatrix.py), which
+the plain PyTorch path and both CUDA kernels multiply by (ops/rs.py).
 """
 
 from __future__ import annotations

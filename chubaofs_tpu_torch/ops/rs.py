@@ -13,7 +13,7 @@ ONE compiled kernel serves every encode, decode and repair pattern.
 
 Matrices travel in the byte-major (8r, 8n) GF(2) bit-matrix form
 (ops/bitmatrix.py) and stay on the host: the plain version and B2 multiply
-by the bits, B1 reads the GF(2^8) coefficients back out of them. Data
+by the bits, B1 by split tables built from each 8x8 block of them. Data
 tensors live on the caller's device:
 
   * a CUDA tensor goes to a hand-written kernel, which launches or raises —

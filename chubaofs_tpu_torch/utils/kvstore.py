@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import struct
 import subprocess
 import threading
@@ -27,7 +28,13 @@ import zlib
 from chubaofs_tpu_torch.utils.locks import SanitizedLock
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native", "kvstore")
-_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "build", "libcfskv.so"))
+# this package's own copy of the engine. It only ever appears by an atomic
+# rename of a finished build, so a process that finds it can load it: test
+# workers and daemons that open their first store together may each build,
+# but none loads a file another is still writing (make writes its
+# build/libcfskv.so in place, and a loader racing that write fails with
+# "file too short").
+_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "build", "libcfskv_torch.so"))
 
 _PUT, _DEL, _BATCH = 1, 2, 3
 _U32 = struct.Struct("<I")
@@ -46,12 +53,16 @@ _lib_lock = threading.Lock()
 
 
 def _build_native() -> bool:
+    tmp = f"{_SO_PATH}.{os.getpid()}.{threading.get_ident()}.d"
     try:
-        subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
+        subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR), f"BUILD={tmp}"],
                        check=True, capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
+        os.replace(os.path.join(tmp, "libcfskv.so"), _SO_PATH)
+        return True
     except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _load_native():

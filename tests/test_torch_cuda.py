@@ -49,6 +49,52 @@ def test_kernel_equals_plain_on_card(dev, r, n, lead, k):
                               gf256.gf_matmul(coef, host))
 
 
+@pytest.mark.parametrize("k", [1, 15, 17, 31, 32, 33, 1000, 1023, 1024, 1025, 12345, 699_051])
+@pytest.mark.parametrize("offset", [0, 1, 4, 15])
+def test_kernel_tails_and_bases(dev, k, offset):
+    """Every row at its own offset mod 16 (odd k) and row bases at odd and
+    4-byte offsets (a slice made contiguous at that offset): aligned loads
+    and a funnel shift, stores through the left lane's words, ragged ends
+    bytewise."""
+    rng = np.random.default_rng(k * 10 + offset)
+    bits = rs.get_kernel(6, 3, dev).parity_bits
+    b, n = 2, 6
+    flat = torch.from_numpy(rng.integers(0, 256, b * n * k + offset, dtype=np.uint8)).to(dev)
+    x = flat[offset:].view(b, n, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset % 16
+    got = cuda_gf.gf_matmul(bits, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rs.gf_matmul_bytes(bits, x)), (k, offset)
+
+
+@pytest.mark.parametrize("r,n,k", [(5, 7, 1000), (4, 12, 65536), (30, 30, 4099), (1, 9, 3001),
+                                   (2, 20, 2048)])
+def test_kernel_non_expansion_matrix(dev, r, n, k):
+    """Any GF(2) matrix, as the TPU kernel takes it."""
+    rng = np.random.default_rng(r * 100 + n)
+    bits = rng.integers(0, 2, (8 * r, 8 * n), dtype=np.int8)
+    x = torch.from_numpy(rng.integers(0, 256, (3, n, k), dtype=np.uint8)).to(dev)
+    got = cuda_gf.gf_matmul(bits, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rs.gf_matmul_bytes(bits, x))
+
+
+@pytest.mark.parametrize("r,n,k", [(70, 30, 5000), (3, 2000, 1000), (60, 40, 777)])
+def test_kernel_past_its_budget(dev, r, n, k):
+    """Shapes past B1's shared-memory budget: row blocks, column blocks that
+    accumulate (at an odd base too), and both."""
+    rng = np.random.default_rng(r + n)
+    bits = rng.integers(0, 2, (8 * r, 8 * n), dtype=np.int8)
+    assert len(cuda_gf.blocks(r, n)) > 1
+    flat = torch.from_numpy(rng.integers(0, 256, 2 * n * k + 1, dtype=np.uint8)).to(dev)
+    for x in (flat[:-1].view(2, n, k), flat[1:].view(2, n, k)):
+        before = cuda_gf.LAUNCHES
+        got = cuda_gf.gf_matmul(bits, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rs.gf_matmul_bytes(bits, x))
+        assert cuda_gf.LAUNCHES - before == len(cuda_gf.blocks(r, n))
+
+
 def test_kernel_rejects_non_contiguous(dev):
     bits = rs.get_kernel(4, 2, dev).parity_bits
     x = torch.zeros((4, 64), dtype=torch.uint8, device=dev)[:, ::2]
@@ -116,15 +162,13 @@ def test_pipe_kernel_group_stacked_matrix(dev):
 @pytest.mark.parametrize("r,n,k", [(5, 7, 1000), (4, 12, 65536), (30, 30, 4099), (1, 9, 3001),
                                    (2, 20, 2048)])
 def test_pipe_kernel_non_expansion_matrix(dev, r, n, k, static):
-    """Any GF(2) matrix, as the TPU kernel takes it; B1 rejects these."""
+    """Any GF(2) matrix, as the TPU kernel takes it."""
     rng = np.random.default_rng(r * 100 + n)
     bits = rng.integers(0, 2, (8 * r, 8 * n), dtype=np.int8)
     x = torch.from_numpy(rng.integers(0, 256, (3, n, k), dtype=np.uint8)).to(dev)
     got = cuda_gf_pipe.gf_matmul_bytes_pipelined(bits, x, static_slots=static)
     torch.cuda.synchronize()
     assert torch.equal(got, rs.gf_matmul_bytes(bits, x))
-    with pytest.raises(ValueError):
-        cuda_gf.gf_matmul(bits, x)
 
 
 @pytest.mark.parametrize("static", [False, True])

@@ -282,24 +282,32 @@ def test_rskernel_failpoint_is_the_ports_own():
 # -- the CUDA wrapper's host side (runs here; the launch needs the card) --------
 
 
+def _split_lookup(tab: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """One block's byte map applied through its split tables, as the kernel
+    looks them up: T0[x & 7] ^ T1[(x >> 3) & 7] ^ T2[x >> 6]."""
+    return tab[x & 7] ^ tab[8 + ((x >> 3) & 7)] ^ tab[16 + (x >> 6)]
+
+
 @pytest.mark.parametrize("name", MATRIX_NAMES)
 def test_kernel_tables_compute_the_product(name, rng):
-    """What the kernel reads: the coefficients recovered from the bit matrix
-    and the split-nibble tables. Emulating the kernel's lookups in numpy on
-    those tables must give the GF(2^8) product."""
+    """What the kernel reads: the split tables the wrapper builds from the
+    bit matrix, per launch block. Emulating the kernel's lookups in numpy on
+    those tables must give the GF(2^8) product (tests/test_torch_gf_tables.py
+    walks the kernel itself)."""
     mat = _matrices()[name]
-    coef = cuda_gf.coefficients(j_bitmatrix.expand_matrix(mat).astype(np.int8))
-    assert np.array_equal(coef, mat)
+    bits = j_bitmatrix.expand_matrix(mat).astype(np.int8)
+    assert np.array_equal(cuda_gf.coefficients(bits), mat)
+    tables = cuda_gf.split_tables(bits)
     r, n = mat.shape
+    assert tables.shape == (r, n, cuda_gf.TAB_BYTES) and not tables[..., 20:].any()
     x = rng.integers(0, 256, (n, 300), dtype=np.uint8)
     out = np.zeros((r, 300), np.uint8)
     for r0, r1, j0, j1 in cuda_gf.blocks(r, n):
-        tab = cuda_gf.nibble_tables(coef[r0:r1, j0:j1])
+        tab = tables[r0:r1, j0:j1]
         assert tab.nbytes <= cuda_gf.SMEM_BUDGET
         for i in range(r1 - r0):
             for j in range(j1 - j0):
-                xj = x[j0 + j]
-                out[r0 + i] ^= tab[i, j, xj & 15] ^ tab[i, j, 16 + (xj >> 4)]
+                out[r0 + i] ^= _split_lookup(tab[i, j], x[j0 + j])
     assert np.array_equal(out, j_gf256.gf_matmul(mat, x))
 
 
@@ -312,14 +320,26 @@ def test_kernel_blocks_cover_matrix_once(r, n):
     assert np.all(cover == 1)
 
 
-def test_kernel_wrapper_rejects_what_it_cannot_run():
+def test_kernel_wrapper_rejects_what_it_cannot_run(rng):
     bits = j_rs.get_kernel(4, 2).parity_bits
     with pytest.raises(ValueError):  # a CPU tensor never reaches the kernel
         cuda_gf.gf_matmul(bits, torch.zeros((4, 16), dtype=torch.uint8))
     with pytest.raises(ValueError):  # not the expansion of a GF(2^8) matrix
         cuda_gf.coefficients(np.eye(16, dtype=np.int8)[::-1].copy())
-    with pytest.raises(ValueError):
-        cuda_gf.coefficients(np.zeros((9, 16), np.int8))
+    for bad in (np.zeros((9, 16), np.int8), np.zeros((16, 12), np.int8)):
+        with pytest.raises(ValueError):
+            cuda_gf.coefficients(bad)
+        with pytest.raises(ValueError):
+            cuda_gf.split_tables(bad)
+    # B1's plan takes a matrix that is no GF(2^8) expansion, as the JAX kernel does
+    swap = np.eye(16, dtype=np.int8)[::-1].copy()
+    plan = cuda_gf._plan(swap, torch.device("cpu"))
+    assert [p[:4] for p in plan] == [(0, 2, 0, 2)]
+    x = rng.integers(0, 256, (2, 64), dtype=np.uint8)
+    got = np.stack([_split_lookup(plan[0][4].numpy()[i, 0], x[0])
+                    ^ _split_lookup(plan[0][4].numpy()[i, 1], x[1]) for i in range(2)])
+    want = np.asarray(j_pallas_gf.gf_matmul_bytes_fused(swap, x, tile_k=128, interpret=True))
+    assert np.array_equal(got, want)
 
 
 def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
@@ -351,7 +371,7 @@ def test_kernel_plan_cache_under_threads(monkeypatch):
             plan = cuda_gf._plan(bits[i], torch.device("cpu"))
             r0, r1, j0, j1, tab = plan[0]
             if (r1, j1) != mats[i].shape or not np.array_equal(
-                    tab.numpy(), cuda_gf.nibble_tables(mats[i])):
+                    tab.numpy(), cuda_gf.split_tables(bits[i])):
                 errors.append(f"thread {seed}: wrong plan for matrix {i}")
                 return
 

@@ -191,7 +191,7 @@ def test_tile_walk_alignment_choice(rng, base_in, base_out):
 @pytest.mark.parametrize("static", [False, True])
 def test_tile_walk_non_expansion_matrix(rng, static):
     """Like the TPU kernel, B2 takes any GF(2) matrix, not only the expansion
-    of a GF(2^8) one (B1 rejects this matrix)."""
+    of a GF(2^8) one (so does B1: tests/test_torch_gf_tables.py)."""
     bits = rng.integers(0, 2, (8 * 5, 8 * 7), dtype=np.int8)
     with pytest.raises(ValueError):
         cuda_gf.coefficients(bits)
