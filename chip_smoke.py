@@ -41,12 +41,29 @@ result line:
             check them; then an EC6P3L3 cluster over 3 AZs loses a shard per
             blob and serves GETs through the local repair. B1 only;
   6. phase 5's single-AZ part again under CFS_GF_PIPELINED=1 and then
-            CFS_GF_PIPELINED=static: B2 only, B1 launches must be 0.
+            CFS_GF_PIPELINED=static: B2 only, B1 launches must be 0;
+  7. daemon path, B1 only (B2 launches must be 0): (a) the blobstore daemon
+            started as a user starts it, cmd.start_role with "device": "cuda",
+            serves phase 5's mix over HTTP: 4 client threads PUT a 64 MiB
+            object each through their own AccessClient, then the small
+            objects; POST /get of everything, 32 `Range:` GETs (206 +
+            Content-Range), a suffix range and an unsatisfiable one (416);
+            stored stripes against the numpy oracle; 2 disks broken through
+            the daemon's cluster handle and everything GET again (decoded
+            bytes must grow); the daemon's own background tick must rebuild
+            every lost shard, byte-equal, within REPAIR_DEADLINE_S; the admin
+            CLI (stat, task ls); POST /admin/reload, then GETs and a PUT on
+            the same address (no kernel rebuilt, the old codec-svc thread
+            gone); /metrics must count codec batches. (b) `python -m
+            chubaofs_tpu_torch.cmd -c cfg.json` as a second process: boot
+            line, PUT / GET / Range GET of 4 MiB, /metrics, /health, and
+            SIGTERM must end it with exit code 0 within 30 s; it must load
+            the kernels built in build/kernels/ and build none.
 
-Every path (3+4, 5, each pass of 6) is driven with every launch count set to
-0 just before it and read just after. Output ends with a `kernels` JSON line,
-the card's name and power limit as nvidia-smi reports them, and the one-line
-result JSON.
+Every path (3+4, 5, each pass of 6, 7a) is driven with every launch count set
+to 0 just before it and read just after. Output ends with a `daemon` JSON line
+(phase 7's steps), a `kernels` JSON line, the card's name and power limit as
+nvidia-smi reports them, and the one-line result JSON.
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12  # float32 rate outside the tensor cores, same sheet
 MiB = 1 << 20
+REPAIR_DEADLINE_S = 180  # phase 7: the daemon's own tick rebuilds every lost shard
 
 
 def log(msg: str) -> None:
@@ -400,13 +418,15 @@ def phase_encoder(new_encoder, CodeMode) -> float:
 # -- phases 5 and 6: the gateway path ---------------------------------------------
 
 
-def put_concurrently(access, payloads: dict[str, bytes], clients: int) -> dict:
-    """PUT every payload, `clients` threads at a time; returns name -> Location."""
+def put_concurrently(access_of, payloads: dict[str, bytes], clients: int) -> dict:
+    """PUT every payload, `clients` threads at a time, thread i through
+    access_of(i); returns name -> Location."""
     locs, errors = {}, []
     names = list(payloads)
 
     def client(i: int):
         try:
+            access = access_of(i)
             for name in names[i::clients]:
                 locs[name] = access.put(payloads[name])
         except Exception as e:  # reported below, fails the phase
@@ -451,18 +471,12 @@ def get_all(access, payloads, locs, ranges) -> None:
               f"ranged GET {name} [{off}, +{ln})")
 
 
-def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
-                  lrc: bool = True) -> dict:
-    """Phase 5 (and, with lrc=False, phase 6): the blobstore's own main path
-    on `device`. Returns wall seconds per step."""
-    from chubaofs_tpu_torch.blobstore.access import MAX_BLOB_SIZE
-    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
-    from chubaofs_tpu_torch.blobstore.clustermgr import DISK_BROKEN
-    from chubaofs_tpu_torch.codec.codemode import CodeMode, get_tactic
-    from chubaofs_tpu_torch.ops import gf256
-    from chubaofs_tpu_torch.utils.exporter import registry
+def gateway_mix(big_mib: int, clients: int):
+    """The gateway path's objects, seeded: `clients` objects of big_mib MiB
+    (EC(12,4)), 8 of 1 MiB (EC(6,3)) and 8 of 100 KiB (EC(3,3)), and 32
+    ranges over them. Returns (rng, payloads, modes, names, ranges)."""
+    from chubaofs_tpu_torch.codec.codemode import CodeMode
 
-    steps = {}
     rng = np.random.default_rng(11)
     payloads = {f"big{i}": rng.bytes(big_mib * MiB) for i in range(clients)}
     modes = {name: CodeMode.EC12P4 for name in payloads}
@@ -475,16 +489,64 @@ def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
         name = names[int(rng.integers(len(names)))]
         off = int(rng.integers(len(payloads[name])))
         ranges.append((name, off, int(rng.integers(1, min(MiB, len(payloads[name]) - off) + 1))))
+    return rng, payloads, modes, names, ranges
+
+
+def check_stripes(cluster, payloads, locs, what: str) -> None:
+    """Each object's first blob, as the blobnodes hold it, against the numpy
+    encode."""
+    from chubaofs_tpu_torch.codec.codemode import get_tactic
+    from chubaofs_tpu_torch.ops import gf256
+
+    for name in sorted(payloads):
+        blob, payload = next(blob_payloads(locs[name], payloads[name]))
+        want = oracle_stripe(gf256, get_tactic(locs[name].code_mode), payload)
+        check(np.array_equal(stored_stripe(cluster, blob), want), f"{name}: {what} stripe != oracle")
+
+
+def break_two_disks(cluster, locs, payloads) -> dict:
+    """The disks under the first big blob's data shard 0 and parity 13 lose
+    every shard and are marked broken. Returns (vid, bid, unit index) -> the
+    lost shard's bytes."""
+    from chubaofs_tpu_torch.blobstore.clustermgr import DISK_BROKEN
+
+    c = cluster
+    vol0 = c.cm.get_volume(locs["big0"].blobs[0].vid)
+    victims = {vol0.units[0].disk_id, vol0.units[13].disk_id}
+    lost = {}
+    for name in sorted(payloads):
+        for blob, _ in blob_payloads(locs[name], payloads[name]):
+            vol = c.cm.get_volume(blob.vid)
+            for idx, u in enumerate(vol.units):
+                if u.disk_id in victims:
+                    lost[(blob.vid, blob.bid, idx)] = c.nodes[u.node_id].get_shard(u.vuid, blob.bid)
+                    c.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
+    for d in victims:
+        c.cm.set_disk_status(d, DISK_BROKEN)
+    return lost
+
+
+def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
+                  lrc: bool = True) -> dict:
+    """Phase 5 (and, with lrc=False, phase 6): the blobstore's own main path
+    on `device`. Returns wall seconds per step."""
+    from chubaofs_tpu_torch.blobstore.access import MAX_BLOB_SIZE
+    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
+    from chubaofs_tpu_torch.codec.codemode import CodeMode
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    steps = {}
+    rng, payloads, modes, names, ranges = gateway_mix(big_mib, clients)
 
     c = MiniCluster(os.path.join(root, "az1"), n_nodes=9, disks_per_node=2, device=device)
     try:
         t0 = time.perf_counter()
-        locs = put_concurrently(c.access, {n: payloads[n] for n in payloads if n.startswith("big")},
-                                clients)
+        locs = put_concurrently(lambda i: c.access, {n: payloads[n] for n in payloads
+                                                     if n.startswith("big")}, clients)
         steps["put_big"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        locs.update(put_concurrently(c.access, {n: payloads[n] for n in payloads
-                                                if not n.startswith("big")}, clients))
+        locs.update(put_concurrently(lambda i: c.access, {n: payloads[n] for n in payloads
+                                                          if not n.startswith("big")}, clients))
         steps["put_small"] = time.perf_counter() - t0
         for name, loc in locs.items():
             check(loc.code_mode == int(modes[name]), f"{name}: code mode {loc.code_mode}")
@@ -496,26 +558,12 @@ def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
         steps["get_and_ranged"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        for name in names:  # each object's first blob
-            blob, payload = next(blob_payloads(locs[name], payloads[name]))
-            want = oracle_stripe(gf256, get_tactic(locs[name].code_mode), payload)
-            check(np.array_equal(stored_stripe(c, blob), want), f"{name}: stored stripe != oracle")
+        check_stripes(c, payloads, locs, "stored")
         steps["stripe_check"] = time.perf_counter() - t0
 
         # degraded: two disks under the first big blob's data shard 0 and parity 13 lose everything
         t0 = time.perf_counter()
-        vol0 = c.cm.get_volume(locs["big0"].blobs[0].vid)
-        victims = {vol0.units[0].disk_id, vol0.units[13].disk_id}
-        lost = {}
-        for name in names:
-            for blob, _ in blob_payloads(locs[name], payloads[name]):
-                vol = c.cm.get_volume(blob.vid)
-                for idx, u in enumerate(vol.units):
-                    if u.disk_id in victims:
-                        lost[(blob.vid, blob.bid, idx)] = c.nodes[u.node_id].get_shard(u.vuid, blob.bid)
-                        c.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
-        for d in victims:
-            c.cm.set_disk_status(d, DISK_BROKEN)
+        lost = break_two_disks(c, locs, payloads)
         decoded0 = registry("access").counter("read_bytes", {"kind": "decoded"}).value
         get_all(c.access, payloads, locs, ranges)
         decoded = registry("access").counter("read_bytes", {"kind": "decoded"}).value - decoded0
@@ -537,10 +585,7 @@ def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
                     continue
                 check(got == pending.pop(key), f"rebuilt shard {key} != the one lost")
         check(not pending, f"{len(pending)} of {len(lost)} lost shards not rebuilt in {ticks} ticks")
-        for name in names:  # the rebuilt stripes hold against the oracle too
-            blob, payload = next(blob_payloads(locs[name], payloads[name]))
-            want = oracle_stripe(gf256, get_tactic(locs[name].code_mode), payload)
-            check(np.array_equal(stored_stripe(c, blob), want), f"{name}: repaired stripe != oracle")
+        check_stripes(c, payloads, locs, "repaired")  # the rebuilt stripes hold too
         get_all(c.access, payloads, locs, ranges[:8])
         steps["repair"] = time.perf_counter() - t0
         steps["repaired_shards"] = len(lost)
@@ -566,6 +611,262 @@ def phase_gateway(root: str, device, big_mib: int = 64, clients: int = 4,
         finally:
             c.close()
         steps["lrc_put_lose_get"] = time.perf_counter() - t0
+    return steps
+
+
+# -- phase 7: the daemon path over HTTP --------------------------------------------
+
+
+def http_get_all(client, payloads, locs, ranges) -> None:
+    """Every object through POST /get, then each range as an HTTP `Range:`
+    GET, which must answer 206 with its Content-Range."""
+    for name, data in payloads.items():
+        check(client.get(locs[name]) == data, f"HTTP GET {name}")
+    for name, off, ln in ranges:
+        status, headers, body = client.get_range(locs[name], f"bytes={off}-{off + ln - 1}")
+        check(status == 206 and body == payloads[name][off:off + ln],
+              f"Range GET {name} [{off}, +{ln}): status {status}")
+        check(headers.get("Content-Range") == f"bytes {off}-{off + ln - 1}/{len(payloads[name])}",
+              f"Range GET {name}: Content-Range {headers.get('Content-Range')}")
+
+
+def scrape(addr: str) -> dict:
+    """One /metrics scrape of a daemon, parsed."""
+    from chubaofs_tpu_torch.rpc.client import RPCClient
+    from chubaofs_tpu_torch.tools.cfsstat import parse_metrics
+
+    status, _, text = RPCClient([addr]).do("GET", "/metrics")
+    check(status == 200, f"/metrics: status {status}")
+    return parse_metrics(text.decode())
+
+
+def pinned_host_bytes() -> dict:
+    """The page-locked host allocator's current counters, where this torch
+    reports them (torch.cuda.host_memory_stats), else {}."""
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return {k: v for k, v in stats.items() if k.endswith(".current")}
+
+
+def kernel_libraries() -> dict:
+    from chubaofs_tpu_torch.ops import cuda_gf
+
+    return {p.name: p.stat().st_mtime_ns for p in cuda_gf.BUILD_DIR.glob("*.so")}
+
+
+def phase_daemon(root: str, device: str = "cuda", big_mib: int = 64, clients: int = 4) -> dict:
+    """Phase 7(a): the blobstore daemon, started through cmd.start_role as a
+    user starts it, served over HTTP with its codec on the card. Returns wall
+    seconds per step."""
+    from chubaofs_tpu_torch.blobstore.gateway import AccessClient
+    from chubaofs_tpu_torch.cli import blobstore as bs_cli
+    from chubaofs_tpu_torch.cmd import start_role
+    from chubaofs_tpu_torch.ops import cuda_gf
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    steps = {}
+    _, payloads, modes, names, ranges = gateway_mix(big_mib, clients)
+    lib = cuda_gf.load() if device == "cuda" else None
+    libs = kernel_libraries()
+    t0 = time.perf_counter()
+    daemon = start_role({"role": "blobstore", "root": os.path.join(root, "blob"), "nodes": 9,
+                         "disksPerNode": 2, "listen": "127.0.0.1:0", "device": device})
+    try:
+        addr = daemon.addr
+        steps["boot"] = time.perf_counter() - t0
+        # the codec registry is process-wide: phase 7's batches are its growth
+        batches0 = scrape(addr).get("cfs_codec_batches_total", 0.0)
+
+        # PUT over HTTP, each client thread with its own AccessClient
+        t0 = time.perf_counter()
+        locs = put_concurrently(lambda i: AccessClient([addr]), {n: payloads[n] for n in names
+                                                                 if n.startswith("big")}, clients)
+        steps["put_big"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        locs.update(put_concurrently(lambda i: AccessClient([addr]), {
+            n: payloads[n] for n in names if not n.startswith("big")}, clients))
+        steps["put_small"] = time.perf_counter() - t0
+        for name, loc in locs.items():
+            check(loc.code_mode == int(modes[name]) and loc.size == len(payloads[name]),
+                  f"{name}: code mode {loc.code_mode}, size {loc.size}")
+
+        # GET over HTTP: every object, 32 ranges, a suffix range, an unsatisfiable one
+        client = AccessClient([addr])
+        t0 = time.perf_counter()
+        http_get_all(client, payloads, locs, ranges)
+        status, headers, body = client.get_range(locs["mid0"], "bytes=-4097")
+        check(status == 206 and body == payloads["mid0"][-4097:], f"suffix Range GET: {status}")
+        size = len(payloads["small0"])
+        status, headers, _ = client.get_range(locs["small0"], f"bytes={size}-")
+        check(status == 416 and headers.get("Content-Range") == f"bytes */{size}",
+              f"unsatisfiable Range GET: {status} {headers.get('Content-Range')}")
+        steps["get_and_ranged"] = time.perf_counter() - t0
+
+        c = daemon.runner.handles["cluster"]
+        t0 = time.perf_counter()
+        check_stripes(c, payloads, locs, "stored")
+        steps["stripe_check"] = time.perf_counter() - t0
+
+        # degraded GET over HTTP through the daemon's own cluster handle
+        t0 = time.perf_counter()
+        lost = break_two_disks(c, locs, payloads)
+        decoded0 = registry("access").counter("read_bytes", {"kind": "decoded"}).value
+        http_get_all(client, payloads, locs, ranges)
+        decoded = registry("access").counter("read_bytes", {"kind": "decoded"}).value - decoded0
+        check(decoded > 0, "degraded HTTP GETs decoded nothing")
+        steps["degraded_get_and_ranged"] = time.perf_counter() - t0
+
+        # repair by the daemon's own background tick (every 1 s); the check
+        # takes the runner lock, so it never reads a shard the tick is writing
+        t0 = time.perf_counter()
+        pending = dict(lost)
+
+        def rebuilt(cluster):
+            for key in list(pending):
+                vid, bid, idx = key
+                u = cluster.cm.get_volume(vid).units[idx]
+                try:
+                    got = cluster.nodes[u.node_id].get_shard(u.vuid, bid)
+                except Exception:
+                    continue
+                check(got == pending.pop(key), f"rebuilt shard {key} != the one lost")
+
+        deadline = time.monotonic() + REPAIR_DEADLINE_S
+        while pending and time.monotonic() < deadline:
+            daemon.runner.call_with("cluster", rebuilt)
+            if pending:
+                time.sleep(0.2)
+        check(not pending, f"{len(pending)} of {len(lost)} lost shards not rebuilt by the "
+                           f"daemon's tick in {REPAIR_DEADLINE_S} s")
+        daemon.runner.call_with("cluster", lambda cl: check_stripes(cl, payloads, locs, "repaired"))
+        steps["repair"] = time.perf_counter() - t0
+        steps["repaired_shards"] = len(lost)
+
+        # the admin surface through the CLI
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        check(bs_cli.main(["--addr", addr, "stat"], stdout=out) == 0, "cli stat")
+        stat = json.loads(out.getvalue())
+        check(stat["disks"] == 18 and stat["volumes"] >= 1 and stat["reloads"] == 0,
+              f"cli stat: {stat}")
+        out = io.StringIO()
+        check(bs_cli.main(["--addr", addr, "task", "ls"], stdout=out) == 0, "cli task ls")
+        check("disk_repair" in out.getvalue(), f"cli task ls shows no disk repair: "
+                                               f"{out.getvalue()[:500]}")
+        steps["admin_cli"] = time.perf_counter() - t0
+
+        # graceful reload: a new cluster and CodecService on the card, same address
+        t0 = time.perf_counter()
+        old_codec = c.codec
+        steps["pinned_before_reload"] = pinned_host_bytes() if device == "cuda" else {}
+        out = io.StringIO()
+        check(bs_cli.main(["--addr", addr, "reload"], stdout=out) == 0, "cli reload")
+        deadline = time.monotonic() + 60
+        while daemon.runner.reloads < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(daemon.runner.reloads == 1, f"reload: {daemon.runner.last_error}")
+        check(daemon.runner.handles["gateway"].addr == addr, "reload moved the address")
+        c = daemon.runner.handles["cluster"]
+        check(c.codec is not old_codec and c.codec.device.type == device, "reload: codec")
+        check(old_codec._closed and not old_codec._thread.is_alive(), "reload: old codec-svc alive")
+        client = AccessClient([addr])
+        for name in names:
+            check(client.get(locs[name]) == payloads[name], f"GET {name} after reload")
+        extra = np.random.default_rng(12).bytes(MiB)
+        check(client.get(client.put(extra)) == extra, "PUT + GET after reload")
+        codec_threads = [th.name for th in threading.enumerate() if th.name == "codec-svc"]
+        check(len(codec_threads) == 1, f"codec-svc threads after reload: {len(codec_threads)}")
+        check(kernel_libraries() == libs and (lib is None or cuda_gf.load() is lib),
+              "reload rebuilt or reloaded B1")
+        steps["reload_and_get"] = time.perf_counter() - t0
+        steps["pinned_after_reload"] = pinned_host_bytes() if device == "cuda" else {}
+
+        batches = scrape(addr).get("cfs_codec_batches_total", 0.0) - batches0
+        check(batches > 0, f"/metrics: cfs_codec_batches_total grew by {batches}")
+        steps["codec_batches"] = batches
+    finally:
+        t0 = time.perf_counter()
+        daemon.stop()
+        steps["stop"] = time.perf_counter() - t0
+    return steps
+
+
+def phase_daemon_process(root: str, device: str = "cuda") -> dict:
+    """Phase 7(b): `python -m chubaofs_tpu_torch.cmd -c cfg.json` as a second
+    process on the card: boot line, PUT / GET / Range GET, /metrics and
+    /health, then SIGTERM must end it with exit code 0 within 30 s. It loads
+    the kernels this process built and builds none."""
+    import signal
+
+    from chubaofs_tpu_torch.blobstore.gateway import AccessClient
+    from chubaofs_tpu_torch.rpc.client import RPCClient
+
+    steps = {}
+    os.makedirs(root, exist_ok=True)
+    cfg = os.path.join(root, "daemon.json")
+    with open(cfg, "w") as f:
+        json.dump({"role": "blobstore", "root": os.path.join(root, "blob"), "nodes": 9,
+                   "disksPerNode": 2, "listen": "127.0.0.1:0", "device": device}, f)
+    libs = kernel_libraries()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p))
+    err = open(os.path.join(root, "daemon.stderr"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "chubaofs_tpu_torch.cmd", "-c", cfg],
+                            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+    def stderr_tail() -> str:
+        err.flush()
+        err.seek(0)
+        return err.read()[-4000:]
+
+    try:
+        boot: dict = {}
+        reader = threading.Thread(target=lambda: boot.update(line=proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(timeout=180)
+        check(bool(boot.get("line")), f"daemon printed no boot line; stderr:\n{stderr_tail()}")
+        info = json.loads(boot["line"])
+        check(info.get("role") == "blobstore" and info.get("addr"), f"boot line {info}")
+        addr = info["addr"]
+        steps["boot"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        client = AccessClient([addr])
+        data = np.random.default_rng(13).bytes(4 * MiB)
+        loc = client.put(data)
+        check(client.get(loc) == data, "subprocess daemon: GET")
+        status, headers, body = client.get_range(loc, "bytes=1000000-1999999")
+        check(status == 206 and body == data[1_000_000:2_000_000]
+              and headers.get("Content-Range") == f"bytes 1000000-1999999/{len(data)}",
+              f"subprocess daemon: Range GET {status}")
+        steps["put_get_range"] = time.perf_counter() - t0
+
+        batches = scrape(addr).get("cfs_codec_batches_total", 0.0)
+        check(batches > 0, f"subprocess daemon /metrics: cfs_codec_batches_total = {batches}")
+        status, _, body = RPCClient([addr]).do("GET", "/health")
+        health = json.loads(body)
+        check(status == 200 and "status" in health, f"subprocess daemon /health: {status}")
+        steps["codec_batches_total"] = batches
+        steps["health"] = health["status"]
+
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            log(f"daemon stderr:\n{stderr_tail()}")
+        check(rc == 0, f"daemon exit code after SIGTERM: {rc} (within 30 s)")
+        steps["sigterm_exit"] = time.perf_counter() - t0
+        check(kernel_libraries() == libs, "the second process rebuilt a kernel")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
     return steps
 
 
@@ -712,6 +1013,23 @@ def main() -> int:
             check(all(v == 0 for k, v in counts.items() if k != name),
                   f"CFS_GF_PIPELINED={env}: other kernels launched: {counts}")
             launches[name] = counts[name]
+
+        # phase 7: the daemon path over HTTP, B1
+        zero_counts()
+        t0 = time.perf_counter()
+        steps = phase_daemon(os.path.join(tmp, "p7"))
+        counts = read_counts()
+        wall["7a_daemon"] = time.perf_counter() - t0
+        check(counts["gf_matmul"] > 0, "the daemon path launched no gf_matmul kernel")
+        check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+              f"B2 launched on the daemon path without CFS_GF_PIPELINED: {counts}")
+        t0 = time.perf_counter()
+        proc_steps = phase_daemon_process(os.path.join(tmp, "p7b"))
+        wall["7b_daemon_process"] = time.perf_counter() - t0
+        log("daemon " + json.dumps({"seconds": wall["7a_daemon"], "steps_s": steps,
+                                    "launches": counts,
+                                    "process_seconds": wall["7b_daemon_process"],
+                                    "process_steps_s": proc_steps}))
 
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",

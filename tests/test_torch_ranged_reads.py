@@ -1,9 +1,9 @@
 """The cases of tests/test_ranged_reads.py, run against the port on the CPU.
 
 Partial-stripe ranged reads: byte-window shard gather, range-scoped degraded
-decode, block-granular cache. The HTTP gateway cases (range parsing, 206/416)
-and the cfs-top / cfs-stat columns wait for the port of blobstore/gateway.py,
-rpc/ and tools/."""
+decode, block-granular cache, the cfs-stat read rollup, and the HTTP Range
+surface of the access gateway (range parsing, 206, 416, 400). The cfs-top
+read-amp column waits for the port of tools/cfstop.py."""
 
 import os
 
@@ -339,3 +339,79 @@ def test_access_ranged_miss_fills_blocks_and_hits_on_repeat(tmp_path, rng):
         assert read_counter("shards_read") == s0  # zero backend bytes
     finally:
         c.close()
+
+
+# -- cfs-stat read rollup and the gateway HTTP Range surface --------------
+
+
+def test_cfsstat_read_rollup_and_summary():
+    from chubaofs_tpu_torch.tools.cfsstat import is_read_metric, read_amp_summary
+
+    assert is_read_metric("cfs_access_read_bytes")
+    assert is_read_metric("cfs_cache_hits")
+    assert is_read_metric("cfs_bcache_mem_hits")
+    assert is_read_metric("cfs_blobnode_shard_get_total")
+    assert not is_read_metric("cfs_scheduler_tasks")
+    before = {'cfs_access_read_bytes{kind="requested"}': 0.0,
+              'cfs_access_read_bytes{kind="shards_read"}': 0.0,
+              'cfs_access_read_bytes{kind="decoded"}': 0.0}
+    after = {'cfs_access_read_bytes{kind="requested"}': 4096.0,
+             'cfs_access_read_bytes{kind="shards_read"}': 8192.0,
+             'cfs_access_read_bytes{kind="decoded"}': 1024.0}
+    amp = read_amp_summary(before, after)
+    assert amp == {"requested_bytes": 4096.0, "shards_read_bytes": 8192.0,
+                   "decoded_bytes": 1024.0, "read_amp": 2.0}
+    # a quiet window prints nothing rather than 0.0
+    assert read_amp_summary(after, after) is None
+
+
+def test_parse_http_range_forms():
+    from chubaofs_tpu_torch.blobstore.gateway import parse_http_range
+
+    assert parse_http_range("bytes=0-99", 1000) == (0, 100)
+    assert parse_http_range("bytes=100-", 1000) == (100, 900)
+    assert parse_http_range("bytes=-50", 1000) == (950, 50)
+    assert parse_http_range("bytes=900-5000", 1000) == (900, 100)  # clipped
+    assert parse_http_range("bytes=1000-1001", 1000) is None  # past the end
+    assert parse_http_range("bytes=-0", 1000) is None
+    assert parse_http_range("bytes=5-2", 1000) is None
+    for bad in ("items=0-1", "bytes=-", "bytes=abc-1", "bytes=5"):
+        with pytest.raises(ValueError):
+            parse_http_range(bad, 1000)
+
+
+@pytest.fixture
+def gateway_pair(cluster):
+    from chubaofs_tpu_torch.blobstore.gateway import AccessClient, AccessGateway
+
+    gw = AccessGateway(cluster.access)
+    yield cluster, AccessClient([gw.addr])
+    gw.stop()
+
+
+def test_gateway_range_request_206(gateway_pair, rng):
+    cluster, client = gateway_pair
+    data = blob_bytes(rng, 500_000)
+    loc = client.put(data)
+    status, headers, body = client.get_range(loc, "bytes=1000-1999")
+    assert status == 206
+    assert body == data[1000:2000]
+    assert headers["Content-Range"] == f"bytes 1000-1999/{len(data)}"
+    # suffix + open-ended forms
+    status, headers, body = client.get_range(loc, "bytes=-77")
+    assert (status, body) == (206, data[-77:])
+    status, _, body = client.get_range(loc, f"bytes={len(data) - 10}-")
+    assert (status, body) == (206, data[-10:])
+
+
+def test_gateway_range_416_and_400(gateway_pair, rng):
+    cluster, client = gateway_pair
+    data = blob_bytes(rng, 10_000)
+    loc = client.put(data)
+    status, headers, _ = client.get_range(loc, f"bytes={len(data)}-")
+    assert status == 416
+    assert headers["Content-Range"] == f"bytes */{len(data)}"
+    status, _, _ = client.get_range(loc, "pages=0-1")
+    assert status == 400
+    # plain (un-ranged) GET still answers 200 with the whole object
+    assert client.get(loc) == data
