@@ -58,16 +58,29 @@ result line:
             chubaofs_tpu_torch.cmd -c cfg.json` as a second process: boot
             line, PUT / GET / Range GET of 4 MiB, /metrics, /health, and
             SIGTERM must end it with exit code 0 within 30 s; it must load
-            the kernels built in build/kernels/ and build none.
+            the kernels built in build/kernels/ and build none;
+  8. grid path, B1 only (parallel/mesh.py): on codec_mesh() (every CUDA
+            device) and on a 2 x 2 grid of cuda:0, sharded_codec_step at
+            EC(12,4) with 1 MiB shards, b = 16 and b = 2 dp + 1, two repair
+            patterns with one setup, against the single-device encode on the
+            card and the numpy oracle, and a corrupted byte caught by
+            RSKernel.verify; sharded_gf_matmul against gf_matmul_hostbatch in
+            turns (seconds and B1 launches per call); the grouped step (g = 2);
+            the ARCHIVE EC(20,4)+L2 encode over the 2 x 2 grid; a MiniCluster
+            on CodecService(mesh=2 x 2 grid): PUT 64 MiB + 300 KB, a shard
+            lost per blob, degraded and ranged GETs, the background loops
+            heal; entry.entry() and entry.dryrun_multichip(4).
 
-Every path (3+4, 5, each pass of 6, 7a) is driven with every launch count set
-to 0 just before it and read just after. Output ends with a `daemon` JSON line
-(phase 7's steps), a `kernels` JSON line, the card's name and power limit as
+Every path (3+4, 5, each pass of 6, 7a, 8) is driven with every launch count
+set to 0 just before it and read just after. Output ends with a `daemon` JSON
+line (phase 7's steps), a `mesh` JSON line (phase 8's steps, B1 launches, the
+card's name and power limit), a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and the one-line result JSON.
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -870,6 +883,179 @@ def phase_daemon_process(root: str, device: str = "cuda") -> dict:
     return steps
 
 
+# -- phase 8: the codec path over device grids --------------------------------------
+
+
+def phase_mesh(root: str, count, device: str = "cuda", shard_len: int = MiB,
+               big_mib: int = 64) -> tuple[dict, dict, dict]:
+    """Phase 8: parallel/mesh.py on a grid of every CUDA device (codec_mesh())
+    and on a 2 x 2 grid of cuda:0, at FLAGSHIP EC(12,4) with 1 MiB shards
+    (device="cpu" and smaller sizes rehearse it on the host). count() reads
+    B1's launch counter. Returns (wall seconds per step, B1 launches per
+    step, sharded_gf_matmul vs gf_matmul_hostbatch: seconds of each call and
+    B1 launches per call)."""
+    from chubaofs_tpu_torch import entry
+    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
+    from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
+    from chubaofs_tpu_torch.codec.service import CodecService
+    from chubaofs_tpu_torch.models import ARCHIVE, FLAGSHIP
+    from chubaofs_tpu_torch.ops import bitmatrix, gf256, rs
+    from chubaofs_tpu_torch.parallel import (
+        codec_mesh, shard_stripes, sharded_codec_step, sharded_gf_matmul, ungroup_stripe)
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    steps, launches = {}, {}
+
+    def timed(name: str, fn):
+        """fn() ends on the host (a gathered array or a synchronized call)."""
+        before = count()
+        t0 = time.perf_counter()
+        out = fn()
+        steps[name] = time.perf_counter() - t0
+        launches[name] = count() - before
+        return out
+
+    t = FLAGSHIP.tactic
+    n, m = t.N, t.M
+    kernel = rs.get_kernel(n, m, device)
+    one = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    grids = {"all": codec_mesh() if device == "cuda" else codec_mesh([one]),
+             "2x2": codec_mesh([one] * 4, dp=2, sp=2)}
+    log(f"grids: {grids}")
+    rng = np.random.default_rng(21)
+    data16 = rng.integers(0, 256, (16, n, shard_len), dtype=np.uint8)
+    want16 = timed("single_device_encode_b16", lambda: kernel.encode(data16).cpu().numpy())
+    for i in (0, 15):
+        check(np.array_equal(want16[i], gf256.encode_numpy(kernel.gen, data16[i])),
+              f"single-device stripe {i} != numpy oracle")
+
+    # (b) the codec step: b = 16 (the main path's shape) and b = 2 dp + 1
+    for gname, mesh in grids.items():
+        dp = mesh.shape["dp"]
+        for b in (16, 2 * dp + 1):
+            run = sharded_codec_step(mesh, n, m)
+            data, want = data16[:b], want16[:b]
+            for bad in ((0, n), (1, n - 1, n + 1)):
+                stripe, ok, repaired = timed(
+                    f"{gname}_step_b{b}_bad{'_'.join(map(str, bad))}",
+                    lambda: [np.asarray(a) for a in run(data, bad_idx=bad)])
+                what = f"{gname} step b={b} bad={bad}"
+                check(np.array_equal(stripe, want), f"{what}: stripe != single-device B1")
+                check(ok.shape == (b,) and bool(ok.all()), f"{what}: ok {ok}")
+                check(np.array_equal(repaired, stripe), f"{what}: repaired != stripe")
+            check(run.trace_count[0] == 1, f"{gname} b={b}: {run.trace_count[0]} setups")
+            if b % dp == 0:  # a corrupted byte flips exactly its own stripe's ok
+                bad = stripe.copy()
+                bad[b // 2, n + 1, shard_len // 3] ^= 0xFF
+                ok = timed(f"{gname}_verify_corrupt_b{b}",
+                           lambda: kernel.verify(shard_stripes(mesh, bad)).cpu().numpy())
+                check(not ok[b // 2] and ok[np.arange(b) != b // 2].all(),
+                      f"{gname} b={b}: verify after corruption {ok}")
+
+    # (c) sharded_gf_matmul against rs.gf_matmul_hostbatch, 16 x EC(12,4) 1 MiB,
+    # in turns (the first round warms the page-locked buffers)
+    bits = kernel.parity_bits
+    check(np.array_equal(rs.gf_matmul_hostbatch(bits, data16, device), want16[:, n:]),
+          "gf_matmul_hostbatch != single-device encode")
+    calls = {"hostbatch": lambda: rs.gf_matmul_hostbatch(bits, data16, device)}
+    for gname, mesh in grids.items():
+        calls[f"grid_{gname}"] = functools.partial(sharded_gf_matmul(mesh), bits, data16)
+    matmul = {name: {"seconds": [], "launches_per_call": 0} for name in calls}
+    for it in range(5):
+        for name in (list(calls) if it % 2 == 0 else list(reversed(calls))):
+            before = count()
+            t0 = time.perf_counter()
+            got = calls[name]()
+            matmul[name]["seconds"].append(time.perf_counter() - t0)
+            matmul[name]["launches_per_call"] = count() - before
+            check(np.array_equal(got, want16[:, n:]), f"{name}: parity != hostbatch")
+    for rec in matmul.values():
+        rec["median_after_first"] = float(np.median(rec["seconds"][1:]))
+
+    # (d) the grouped step, g = 2, on the 2 x 2 grid at an uneven b
+    mesh = grids["2x2"]
+    run_g = sharded_codec_step(mesh, n, m, group=2)
+    stripe_g, ok_g, repaired_g = timed(
+        "2x2_grouped_g2_b5", lambda: [np.asarray(a) for a in run_g(data16[:5], bad_idx=(0, n))])
+    check(np.array_equal(ungroup_stripe(stripe_g, 2, n, m, b=5), want16[:5]), "grouped stripe")
+    check(np.array_equal(ungroup_stripe(repaired_g, 2, n, m, b=5), want16[:5]), "grouped repair")
+    check(ok_g.shape == (5,) and bool(ok_g.all()), f"grouped ok {ok_g}")
+
+    # (e) ARCHIVE EC(20,4)+L2, 16 MiB objects, over the 2 x 2 grid
+    ta = ARCHIVE.tactic
+    lrc_mat = lrc_parity_matrix(ta)
+    lrc_bits = bitmatrix.expand_matrix(lrc_mat).astype(np.int8)
+    data_a = rng.integers(0, 256, (4, ta.N, ARCHIVE.shard_len * shard_len // MiB), dtype=np.uint8)
+    got = timed("2x2_archive_lrc_16mib_x4", lambda: sharded_gf_matmul(mesh)(lrc_bits, data_a))
+    check(np.array_equal(got, rs.gf_matmul_hostbatch(lrc_bits, data_a, device)),
+          "grid LRC parity != hostbatch")
+    check(np.array_equal(got[0], gf256.gf_matmul(lrc_mat, data_a[0])), "grid LRC != numpy oracle")
+
+    # (f) the blobstore on a grid-backed CodecService
+    t0 = time.perf_counter()
+    before = count()
+    svc = CodecService(mesh=mesh)
+    try:
+        c = MiniCluster(os.path.join(root, "grid"), n_nodes=9, disks_per_node=2, codec=svc)
+        try:
+            payloads = {"big": rng.bytes(big_mib * MiB), "small": rng.bytes(300_000)}
+            locs = {name: c.access.put(p) for name, p in payloads.items()}
+            lost = {}
+            for name, payload in payloads.items():
+                for blob, _ in blob_payloads(locs[name], payload):
+                    u = c.cm.get_volume(blob.vid).units[1]
+                    lost[(blob.vid, blob.bid)] = (u, c.nodes[u.node_id].get_shard(u.vuid, blob.bid))
+                    c.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
+            decoded0 = registry("access").counter("read_bytes", {"kind": "decoded"}).value
+            for name, payload in payloads.items():
+                check(c.access.get(locs[name]) == payload, f"grid degraded GET {name}")
+            off, ln = big_mib * MiB // 13 + 7, big_mib * MiB // 21
+            check(c.access.get(locs["big"], off, ln) == payloads["big"][off:off + ln],
+                  "grid degraded ranged GET")
+            check(registry("access").counter("read_bytes", {"kind": "decoded"}).value > decoded0,
+                  "grid degraded GETs decoded nothing")
+            ticks = 0
+            while ticks < 30 and any(_missing(c, u, bid) for (_, bid), (u, _) in lost.items()):
+                c.run_background_once()
+                ticks += 1
+            for (vid, bid), (u, shard) in lost.items():
+                check(c.nodes[u.node_id].get_shard(u.vuid, bid) == shard,
+                      f"grid repair of ({vid}, {bid}) unit 1")
+            for name, payload in payloads.items():
+                check(c.access.get(locs[name]) == payload, f"grid GET {name} after the heal")
+            steps["2x2_minicluster_heal_ticks"] = ticks
+            steps["2x2_minicluster_lost_shards"] = len(lost)
+            check(svc.stats_snapshot()["batches"] > 0, "the grid service ran no batch")
+        finally:
+            c.close()
+    finally:
+        svc.close()
+    steps["2x2_minicluster_put_lose_get_heal"] = time.perf_counter() - t0
+    launches["2x2_minicluster_put_lose_get_heal"] = count() - before
+
+    # (g) the entry points on the card
+    fn, (example,) = timed("entry", lambda: entry.entry(None if device == "cuda" else device))
+    out = fn(example)
+    check(out.device.type == device and tuple(out.shape) == (2, n + m, 1024), "entry() output")
+    check(np.array_equal(out[1].cpu().numpy(), gf256.encode_numpy(kernel.gen, example[1])),
+          "entry() != numpy oracle")
+    got = timed("dryrun_multichip_4", lambda: entry.dryrun_multichip(
+        4, None if device == "cuda" else device, shard_len))
+    check((got["dp"], got["sp"], got["shard_len"]) == (2, 2, shard_len),
+          f"dryrun_multichip(4): {got}")
+    return steps, launches, matmul
+
+
+def _missing(cluster, unit, bid) -> bool:
+    from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
+
+    try:
+        cluster.nodes[unit.node_id].get_shard(unit.vuid, bid)
+    except NoSuchShard:
+        return True
+    return False
+
+
 def build_all(libs) -> float:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -1030,6 +1216,21 @@ def main() -> int:
                                     "launches": counts,
                                     "process_seconds": wall["7b_daemon_process"],
                                     "process_steps_s": proc_steps}))
+
+        # phase 8: the codec path over device grids, B1
+        zero_counts()
+        t0 = time.perf_counter()
+        steps, step_launches, matmul = phase_mesh(os.path.join(tmp, "p8"), lambda: cuda_gf.LAUNCHES)
+        counts = read_counts()
+        wall["8_mesh"] = time.perf_counter() - t0
+        check(counts["gf_matmul"] > 0, "the grid path launched no gf_matmul kernel")
+        check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+              f"B2 launched on the grid path: {counts}")
+        log("mesh " + json.dumps({"seconds": wall["8_mesh"], "steps_s": steps,
+                                  "launches_per_step": step_launches, "launches": counts,
+                                  "gf_matmul_vs_hostbatch": matmul,
+                                  "device": torch.cuda.get_device_name(0),
+                                  "nvidia_smi": nvidia_smi_line()}))
 
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",

@@ -25,6 +25,7 @@ metadata.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from concurrent.futures import Future, InvalidStateError
@@ -89,19 +90,33 @@ def _pad_to_bucket(data: np.ndarray, k: int, kb: int) -> np.ndarray:
 
 
 class CodecService:
-    """Queue -> padded device batches -> futures. Thread-safe, one device stream."""
+    """Queue -> padded device batches -> futures. Thread-safe; one device
+    stream, or each grid device's stream with a mesh."""
 
     def __init__(self, max_batch: int = 32, max_wait_ms: float = 2.0,
-                 mesh=None, device=None):
+                 mesh=None, device=None, mesh_interpret: bool = False):
         """device: where the batches run — None means the CUDA device and
-        raises when there is none; "cpu" runs on the host. mesh (the JAX
-        package's multi-chip dispatch) is not ported yet and is refused."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "CodecService(mesh=...) is not ported: multi-GPU dispatch is "
-                "ROADMAP §A item 4")
+        raises when there is none; "cpu" runs on the host.
+        mesh: optional parallel.mesh.CodecMesh (dp, sp) — drained batches
+        then run through parallel.mesh.sharded_gf_matmul instead of the
+        single-device path, which takes the whole blobstore data plane
+        (access PUT/GET, scheduler bulk repair) onto every device of the
+        grid without any caller change. The service's device is then the
+        grid's first device. mesh_interpret names B1's plain version on a
+        CPU grid (the reference's interpret mode); a CUDA grid refuses it."""
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
+        self.mesh = mesh
+        self._mesh_mm = None
+        if mesh is not None:
+            from chubaofs_tpu_torch.parallel.mesh import as_device, sharded_gf_matmul
+
+            first = mesh.devices.flat[0]
+            if device is not None and as_device(device) != first:
+                raise ValueError(f"device={device} is not the grid's first "
+                                 f"device {first}")
+            device = first
+            self._mesh_mm = sharded_gf_matmul(mesh, interpret=mesh_interpret)
         self.device = rs.resolve_device(device)
         self._q: queue.Queue[_Job | None] = queue.Queue()
         self._thread = threading.Thread(target=self._run, daemon=True, name="codec-svc")
@@ -453,17 +468,20 @@ class CodecService:
         stack = buf.numpy()
         np.stack([j.data for j in jobs], out=stack)
         t_dev = _time.perf_counter()
-        # H2D copy, one kernel launch, D2H copy (rs.gf_matmul_hostbatch)
+        # H2D copy, one kernel launch, D2H copy (rs.gf_matmul_hostbatch) —
+        # or, with a mesh, the same fanned out in blocks over every device
+        if self._mesh_mm is not None:
+            mm, batch = self._mesh_mm, stack
+        else:
+            mm, batch = functools.partial(rs.gf_matmul_hostbatch, device=self.device), buf
         if sig[0] == "encode":
             kernel = rs.get_kernel(jobs[0].n, jobs[0].m, self.device)
-            parity = rs.gf_matmul_hostbatch(kernel.parity_bits, buf, self.device)
+            parity = mm(kernel.parity_bits, batch)
             out = np.concatenate([stack, parity], axis=1)  # (B, n+m, kb)
         else:
             from chubaofs_tpu_torch.ops import bitmatrix
 
-            out = rs.gf_matmul_hostbatch(
-                bitmatrix.expand_matrix(jobs[0].mat).astype(np.int8), buf,
-                self.device)
+            out = mm(bitmatrix.expand_matrix(jobs[0].mat).astype(np.int8), batch)
         t_done = _time.perf_counter()
         self._record_batch(len(jobs), t_done - t0, kind=str(sig[0]))
         for j in jobs:

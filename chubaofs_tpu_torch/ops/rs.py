@@ -198,8 +198,9 @@ class RSKernel:
 
     Host-side numpy builds the generator and per-repair decode matrices; the
     device only ever sees one shape-polymorphic GF matmul. All methods accept
-    numpy arrays or uint8 tensors with shape (n_in, k) or (B, n_in, k) and
-    return tensors on the kernel's device.
+    numpy arrays, uint8 tensors, or anything numpy can read (a sharded
+    result of parallel/mesh.py, gathered) with shape (n_in, k) or
+    (B, n_in, k) and return tensors on the kernel's device.
     """
 
     def __init__(self, n: int, m: int, device=None):
@@ -217,16 +218,23 @@ class RSKernel:
 
     # -- encode ------------------------------------------------------------
 
-    def encode_parity(self, data) -> torch.Tensor:
+    #
+    # portable=True runs the plain PyTorch lowering (gf_matmul_bytes) on the
+    # kernel's device instead of the dispatch (B1/B2 on a CUDA tensor), as
+    # the JAX package's portable=True runs its einsum lowering. The caller
+    # names it; the default stays the kernel.
+
+    def encode_parity(self, data, *, portable: bool = False) -> torch.Tensor:
         """(..., n, k) data -> (..., m, k) parity."""
         # hot-path failpoint: a near-free no-op while unarmed
         chaos.failpoint("rs.encode")
-        return gf_matmul_dispatch(self.parity_bits, as_tensor(data, self.device))
+        fn = gf_matmul_bytes if portable else gf_matmul_dispatch
+        return fn(self.parity_bits, as_tensor(data, self.device))
 
-    def encode(self, data) -> torch.Tensor:
+    def encode(self, data, *, portable: bool = False) -> torch.Tensor:
         """(..., n, k) data -> (..., n+m, k) full stripe."""
         data = as_tensor(data, self.device)
-        return torch.cat([data, self.encode_parity(data)], dim=-2)
+        return torch.cat([data, self.encode_parity(data, portable=portable)], dim=-2)
 
     # -- reconstruct -------------------------------------------------------
 
@@ -298,14 +306,15 @@ class RSKernel:
             missing = list(missing) + [present[0]] * pad
         return self._device_plan(mat, present, missing)
 
-    def apply_repair(self, plan, shards) -> torch.Tensor:
+    def apply_repair(self, plan, shards, *, portable: bool = False) -> torch.Tensor:
         """Apply a repair_plan to (..., n+m, k) shards; returns a new tensor."""
         mat_bits, present, missing = plan
         shards = as_tensor(shards, self.device)
         if missing.shape[0] == 0:
             return shards
         survivors = shards.index_select(-2, present.to(shards.device))
-        rows = gf_matmul_dispatch(mat_bits, survivors)
+        fn = gf_matmul_bytes if portable else gf_matmul_dispatch
+        rows = fn(mat_bits, survivors)
         out = shards.clone()
         out[..., missing.to(shards.device), :] = rows
         return out
@@ -320,10 +329,11 @@ class RSKernel:
 
     # -- verify ------------------------------------------------------------
 
-    def verify(self, shards) -> torch.Tensor:
+    def verify(self, shards, *, portable: bool = False) -> torch.Tensor:
         """(..., n+m, k) -> scalar/batch bool: parity rows match re-encoded parity."""
         shards = as_tensor(shards, self.device)
-        expect = self.encode_parity(shards[..., : self.n, :].contiguous())
+        expect = self.encode_parity(shards[..., : self.n, :].contiguous(),
+                                    portable=portable)
         got = shards[..., self.n :, :]
         return (expect == got).flatten(-2).all(dim=-1)
 

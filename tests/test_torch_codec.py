@@ -370,8 +370,13 @@ def test_service_without_cuda_raises_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         t_service.default_service()
     CodecService(device=CPU).close()
-    with pytest.raises(NotImplementedError):
-        CodecService(device=CPU, mesh=object())
+    # a grid names its devices: a CPU grid runs without CUDA, and a device
+    # other than the grid's first is refused
+    from chubaofs_tpu_torch.parallel import codec_mesh
+
+    CodecService(mesh=codec_mesh([torch.device(CPU)] * 2)).close()
+    with pytest.raises(ValueError, match="first device"):
+        CodecService(device=CPU, mesh=codec_mesh([torch.device("cuda", 0)]))
 
 
 def test_service_attributes_stages_and_counts_batches(svc, rng):

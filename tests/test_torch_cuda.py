@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, against their plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch version, and
+the device grid of parallel/mesh.py laid over the card.
 
 These tests need an NVIDIA GPU with nvcc (they build ops/csrc/gf_matmul.cu,
 B1, and ops/csrc/gf_matmul_pipe.cu, B2); elsewhere they skip. On the GPU machine run them with
@@ -227,3 +228,58 @@ def test_pipe_failure_raises_instead_of_falling_back(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         rs.gf_matmul_dispatch(bits, x)
     assert cuda_gf.LAUNCHES == b1
+
+
+# -- parallel/mesh.py on the card: a grid that repeats the card ---------------
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("group", [1, 2])
+def test_mesh_step_on_card_matches_single_device(dev, monkeypatch, dp, sp, group):
+    """sharded_codec_step on a grid of the host's cards (each card in turn,
+    repeated when there are fewer than dp x sp) against the single-device
+    RSKernel on the card: every stripe byte-equal, ok all true, repaired ==
+    stripe for two patterns with one setup, and every product on B1 (3
+    launches per block per call), even under CFS_GF_PIPELINED=1."""
+    from chubaofs_tpu_torch.parallel import codec_mesh, sharded_codec_step, ungroup_stripe
+
+    n, m = 6, 3
+    cards = torch.cuda.device_count()
+    mesh = codec_mesh([torch.device("cuda", i % cards) for i in range(dp * sp)], dp=dp, sp=sp)
+    run = sharded_codec_step(mesh, n, m, group=group)
+    data = np.random.default_rng(dp * 10 + sp).integers(
+        0, 256, (2 * dp * group + 1, n, 4099), dtype=np.uint8)
+    want = rs.get_kernel(n, m, dev).encode(torch.from_numpy(data).to(dev)).cpu().numpy()
+    monkeypatch.setenv("CFS_GF_PIPELINED", "1")  # the grid never takes B2
+    for bad in [(0, n), (1, 2, n + 1)]:
+        b1, b2 = cuda_gf.LAUNCHES, dict(cuda_gf_pipe.LAUNCHES)
+        stripe, ok, repaired = (np.asarray(a) for a in run(data, bad_idx=bad))
+        assert cuda_gf.LAUNCHES - b1 == 3 * dp * sp and cuda_gf_pipe.LAUNCHES == b2
+        if group > 1:
+            stripe = ungroup_stripe(stripe, group, n, m, b=data.shape[0])
+            repaired = ungroup_stripe(repaired, group, n, m, b=data.shape[0])
+        assert np.array_equal(stripe, want) and np.array_equal(repaired, want)
+        assert ok.shape == (data.shape[0],) and ok.all()
+    assert run.trace_count[0] == 1
+
+
+def test_mesh_gf_matmul_on_card_matches_hostbatch(dev):
+    from chubaofs_tpu_torch.parallel import codec_mesh, sharded_gf_matmul
+
+    mesh = codec_mesh([torch.device("cuda", i % torch.cuda.device_count()) for i in range(4)],
+                      dp=2, sp=2)
+    bits = rs.get_kernel(12, 4, dev).parity_bits
+    for b, k in [(16, 65536), (5, 4099), (3, 17)]:
+        data = np.random.default_rng(b + k).integers(0, 256, (b, 12, k), dtype=np.uint8)
+        assert np.array_equal(sharded_gf_matmul(mesh)(bits, data),
+                              rs.gf_matmul_hostbatch(bits, data, dev)), (b, k)
+
+
+def test_mesh_dryrun_and_entry_on_card(dev):
+    from chubaofs_tpu_torch import entry
+
+    fn, (example,) = entry.entry()
+    out = fn(example)
+    assert out.device.type == "cuda" and out.shape == (2, 16, 1024)
+    got = entry.dryrun_multichip(4, shard_len=65536)
+    assert (got["dp"], got["sp"]) == (2, 2)

@@ -7,13 +7,16 @@ transition to firing freezes a bundle with every section present and the
 triggering fingerprint, on a MiniCluster(device="cpu") that served traffic.
 Hygiene: the size budget evicts oldest-first (never the bundle just
 written), a flapping fingerprint dedups inside the cooldown, and a failing
-section degrades the bundle instead of failing it. The console collector
-and the postmortem CLIs (cfs-events, cfs-stat, cfs-trace --bundle,
-cfs-doctor) wait for their ports."""
+section degrades the bundle instead of failing it. Postmortem: cfs-stat
+--bundle reads a bundle, and cfs-doctor lists, inspects and diffs bundles
+(and refuses a directory that is none). The console collector and
+cfs-events / cfs-trace --bundle wait for their ports."""
 
+import io
 import json
 import os
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -203,3 +206,81 @@ def test_capture_section_error_degrades_not_fatal(monkeypatch):
     assert "sampler wedged" in payload["profile"]["error"]
     assert profiler.active() is None
 
+
+
+# -- postmortem CLIs (offline --bundle mode) -----------------------------------
+
+
+@pytest.fixture()
+def collected_bundle(tmp_path):
+    """One daemon bundle with real content: events, two metric snapshots
+    with movement, a forced slowop span."""
+    from chubaofs_tpu_torch.blobstore.trace import start_span
+    from chubaofs_tpu_torch.utils import auditlog
+
+    events.configure(logdir=str(tmp_path / "ev"))
+    auditlog.configure_slowop(logdir=str(tmp_path / "slow"),
+                              threshold_ms=0.0001)
+    registry("bundle").counter("ticks").add(5)
+    metrichist.default_history().record()
+    registry("bundle").counter("ticks").add(7)
+    events.emit("bench_tick", detail={"i": 1})
+    span = start_span("op_slow")
+    span.finish()
+    auditlog.record_slow_op("test", "op_slow", 0.25, span=span)
+    metrichist.default_history().record()
+    man = flightrec.capture(trigger="test", fingerprint="fp|x=1",
+                            alert={"name": "broken_disks",
+                                   "state": "firing", "severity": "critical",
+                                   "value": 2.0, "since": time.time(),
+                                   "labels": {}})
+    yield man["bundle"]
+    events.reset()
+
+
+def test_cfs_stat_reads_bundle(collected_bundle):
+    from chubaofs_tpu_torch.tools import cfsstat
+
+    out = io.StringIO()
+    rc = cfsstat.main(["--bundle", collected_bundle], out=out)
+    assert rc == 0
+    assert "cfs_bundle_ticks" in out.getvalue()
+    rc = cfsstat.main(["--bundle", collected_bundle, "--slowops", "--json"],
+                      out=(out := io.StringIO()))
+    assert rc == 0
+    blob = json.loads(out.getvalue())
+    assert any(r["metric"].endswith('cfs_bundle_ticks_total')
+               or "cfs_bundle_ticks" in r["metric"] for r in blob["rows"])
+    assert blob["slowops"], "bundle slowops not surfaced"
+
+
+def test_cfs_doctor_list_inspect_diff(collected_bundle, tmp_path):
+    from chubaofs_tpu_torch.tools import cfsdoctor
+
+    out = io.StringIO()
+    assert cfsdoctor.main(["list", "--dir", flightrec.flight_dir()],
+                          out=out) == 0
+    assert "fp" in out.getvalue()
+
+    out = io.StringIO()
+    assert cfsdoctor.main(["inspect", collected_bundle], out=out) == 0
+    text = out.getvalue()
+    assert "broken_disks" in text          # names the firing alert
+    assert "window:" in text               # shows the burn-rate window
+    assert "op_slow" in text               # surfaces the in-window slowop
+    assert "cfs_bundle_ticks" in text      # top burn-rate families
+
+    registry("bundle").counter("ticks").add(100)
+    metrichist.default_history().record()
+    man2 = flightrec.capture(trigger="later", fingerprint="fp|x=2")
+    out = io.StringIO()
+    assert cfsdoctor.main(["diff", collected_bundle, man2["bundle"]],
+                          out=out) == 0
+    assert "cfs_bundle_ticks" in out.getvalue()
+
+
+def test_read_bundle_rejects_non_bundle(tmp_path):
+    from chubaofs_tpu_torch.tools.cfsdoctor import read_bundle
+
+    with pytest.raises(ValueError):
+        read_bundle(str(tmp_path))
