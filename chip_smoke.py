@@ -70,12 +70,30 @@ result line:
             on CodecService(mesh=2 x 2 grid): PUT 64 MiB + 300 KB, a shard
             lost per blob, degraded and ranged GETs, the background loops
             heal; entry.entry() and entry.dryrun_multichip(4).
+  9. soak harness, B1 only (B2 launches must be 0), chaos/soak.py on
+            device="cuda", 9 nodes x 2 disks, objects of 120 KB, 1 MiB, 4 MiB
+            and 16 MiB: (a) run_kill_soak, seed 7, 16 warm + 8 live PUTs
+            (about 130 MiB acked): a blobnode killed under live PUTs, its
+            disks found broken by heartbeat expiry, rebuilt by the repair
+            plane; every acked blob must read back byte-identical, rebuild
+            throughput be nonzero, no task stranded; (b) the same with every
+            PUT on RG6P6, rebuilt through beta-fetch (some shards must be);
+            (c) run_soak under each acceptance fault plan (node_wedge,
+            link_drop, shard_bitrot), then run_cache_soak; (d) `python -m
+            chubaofs_tpu_torch.tools.chaos_soak --kill-blobnode --mode RG6P6
+            --json` as a second process with no --device: it must exit 0
+            without building a kernel, and exit non-zero naming the missing
+            device when CUDA_VISIBLE_DEVICES is empty.
 
-Every path (3+4, 5, each pass of 6, 7a, 8) is driven with every launch count
-set to 0 just before it and read just after. Output ends with a `daemon` JSON
-line (phase 7's steps), a `mesh` JSON line (phase 8's steps, B1 launches, the
-card's name and power limit), a `kernels` JSON line, the card's name and power limit as
-nvidia-smi reports them, and the one-line result JSON.
+Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c) is driven
+with every launch count set to 0 just before it and read just after. Output
+ends with a `daemon` JSON line (phase 7's steps), a `mesh` JSON line (phase
+8's steps, B1 launches, the card's name and power limit), a `soak` JSON line
+(phase 9's steps: wall seconds, rebuild seconds, shards and shards/s, bytes
+per repaired shard, download/decode overlap, the top three stages of the
+cfs-trace critical path, the rebuild's split over download, decode and
+write-back, B1 launches), a `kernels` JSON line, the card's name and power
+limit as nvidia-smi reports them, and the one-line result JSON.
 """
 
 from __future__ import annotations
@@ -1046,6 +1064,175 @@ def phase_mesh(root: str, count, device: str = "cuda", shard_len: int = MiB,
     return steps, launches, matmul
 
 
+# -- phase 9: the soak harness: kill-a-blobnode rebuilds and fault plans ------------
+
+
+SOAK_SIZES = [120_000, MiB, 4 * MiB, 16 * MiB]  # EC(3,3), EC(6,3), EC(12,4) blobs
+
+
+def repair_split(records: list[dict]) -> dict:
+    """What the rebuild's time is made of, over every scheduler.repair span
+    (one per disk-repair task) the soak finished: each span's critical path
+    (cfs-trace) splits its wall time into download (the survivors' shard
+    reads), codec.host and codec.device (the decode's host staging and its
+    device batch, H2D + kernel + D2H), and what no stage covers (the write-
+    back of the rebuilt shards and the scheduler's glue). Stages overlap by
+    design, so the parts may sum past the wall."""
+    from chubaofs_tpu_torch.tools.cfstrace import critical_path
+
+    out = {"traces": len(records), "wall_ms": 0.0, "unattributed_ms": 0.0}
+    for rec in records:
+        cp = critical_path([rec])
+        out["wall_ms"] += cp["wall_ms"]
+        out["unattributed_ms"] += cp["unattributed_ms"]
+        for st in cp["stages"]:
+            key = f"{st['stage']}_ms"
+            out[key] = out.get(key, 0.0) + st["ms"]
+    return out
+
+
+def kill_soak_step(root: str, seed: int, mode, zero_counts, read_counts,
+                   warm_puts: int = 16, live_puts: int = 8) -> dict:
+    """Phase 9a / 9b: run_kill_soak on the card at SOAK_SIZES. The soak
+    itself fails (SoakFailure) unless every acked blob reads back byte-
+    identical after the rebuild, the rebuild throughput is nonzero, and no
+    task is stranded in WORKING; this adds B1 > 0 and B2 = 0 launches."""
+    from chubaofs_tpu_torch.blobstore import trace
+    from chubaofs_tpu_torch.chaos.soak import run_kill_soak
+
+    records: list[dict] = []
+
+    def collect(span):
+        if span.operation == "scheduler.repair":
+            records.append(span.to_record())
+
+    prev = trace.finish_hook()
+    trace.set_finish_hook(collect)  # run_kill_soak chains to it
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_kill_soak(root, seed=seed, device="cuda", warm_puts=warm_puts,
+                            live_puts=live_puts, sizes=SOAK_SIZES, mode=mode)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        trace.set_finish_hook(prev)
+    what = f"kill soak seed {seed} mode {mode}"
+    check(res["ok"] and res["rebuilt_shards"] > 0 and res["rebuild_shards_per_s"] > 0,
+          f"{what}: {res}")
+    check(counts["gf_matmul"] > 0, f"{what}: B1 never launched")
+    check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+          f"{what}: B2 launched without CFS_GF_PIPELINED: {counts}")
+    if mode is not None:
+        check(res["code_mode"] == mode and res["beta_shards"] > 0,
+              f"{what}: no shard rebuilt through beta-fetch: {res['beta_shards']}")
+    cp = res["critical_path"] or {}
+    return {
+        "seconds": wall, "mode": res["code_mode"], "puts": res["puts"],
+        "puts_rejected": res["puts_rejected"],
+        "live_puts": res["live_puts"], "killed_node": res["killed_node"],
+        "detect_s": res["detect_s"], "rebuild_s": res["rebuild_s"],
+        "rebuilt_shards": res["rebuilt_shards"],
+        "rebuild_shards_per_s": res["rebuild_shards_per_s"],
+        "bytes_per_repaired_shard": res["bytes_per_repaired_shard"],
+        "repair_overlap_ratio": res["repair_overlap_ratio"],
+        "beta_shards": res["beta_shards"],
+        "critical_path_top3": cp.get("stages", [])[:3],
+        "critical_path_wall_ms": cp.get("wall_ms"),
+        "rebuild_split": repair_split(records),
+        "launches": counts,
+    }
+
+
+def soak_cli(root: str, env_extra: dict) -> tuple[int, str, str, float]:
+    """`python -m chubaofs_tpu_torch.tools.chaos_soak --kill-blobnode --mode
+    RG6P6 --seed 3 --json` with no --device, as a second process."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p), **env_extra)
+    env.pop("CFS_GF_PIPELINED", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "chubaofs_tpu_torch.tools.chaos_soak", "--kill-blobnode",
+         "--mode", "RG6P6", "--seed", "3", "--json", "--root", root],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def phase_soak(root: str, zero_counts, read_counts) -> dict:
+    """Phase 9, B1 only, CFS_GF_PIPELINED unset: (a) run_kill_soak at the
+    default modes, (b) the same under RG6P6 (beta-fetch repair, full gather
+    when the killed node held two units of a stripe), (c) run_soak with each
+    acceptance fault plan and then run_cache_soak, (d) the cfs-chaos-soak CLI
+    as a second process on its default device, and again with no visible
+    GPU, where it must fail naming the missing device. Any soak failure
+    raises SoakFailure (with its incident bundle) out of this phase."""
+    from chubaofs_tpu_torch.chaos.soak import run_cache_soak, run_soak
+    from chubaofs_tpu_torch.tools.chaos_soak import ACCEPTANCE_PLANS
+
+    steps = {}
+    steps["9a_kill_default"] = kill_soak_step(os.path.join(root, "9a"), 7, None,
+                                              zero_counts, read_counts)
+    log("soak 9a " + json.dumps(steps["9a_kill_default"]))
+    steps["9b_kill_rg6p6"] = kill_soak_step(os.path.join(root, "9b"), 8, "RG6P6",
+                                            zero_counts, read_counts)
+    log("soak 9b " + json.dumps(steps["9b_kill_rg6p6"]))
+
+    for plan in ACCEPTANCE_PLANS:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_soak(os.path.join(root, f"9c_{plan}"), plan, seed=7, device="cuda",
+                       sizes=SOAK_SIZES)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(res["ok"] and res["puts"] > 0 and res["gets"] > 0, f"soak {plan}: {res}")
+        check(counts["gf_matmul"] > 0, f"soak {plan}: B1 never launched")
+        check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+              f"soak {plan}: B2 launched: {counts}")
+        steps[f"9c_{plan}"] = {"seconds": wall, "puts": res["puts"],
+                               "puts_rejected": res["puts_rejected"], "gets": res["gets"],
+                               "max_get_s": res["max_get_s"], "fired": res["fired"],
+                               "injections": sum(e["event"] == "inject" for e in res["events"]),
+                               "launches": counts}
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_cache_soak(os.path.join(root, "9c_cache"), seed=7, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(res["ok"] and res["gets"] > 0 and res["deletes"] > 0, f"cache soak: {res}")
+    check(counts["gf_matmul"] > 0, "cache soak: B1 never launched")
+    check(counts["gf_matmul_pipe"] == counts["gf_matmul_pipe_static"] == 0,
+          f"cache soak: B2 launched: {counts}")
+    steps["9c_cache"] = {"seconds": wall, "gets": res["gets"], "overwrites": res["overwrites"],
+                         "deletes": res["deletes"], "promoted_peak": res["promoted_peak"],
+                         "launches": counts}
+
+    libs = kernel_libraries()
+    rc, out, err, wall = soak_cli(os.path.join(root, "9d"), {})
+    if rc != 0:
+        log(f"cfs-chaos-soak stderr:\n{err[-4000:]}")
+    check(rc == 0, f"cfs-chaos-soak on its default device: exit code {rc}")
+    check(kernel_libraries() == libs, "the cfs-chaos-soak process rebuilt a kernel")
+    doc = json.loads(out)
+    (kill,) = doc["results"]
+    check(doc["ok"] and kill["ok"] and kill["code_mode"] == "RG6P6"
+          and kill["rebuilt_shards"] > 0, f"cfs-chaos-soak result: {kill}")
+    steps["9d_cli"] = {"seconds": wall, "launches": None,  # another process's counts
+                       **{k: kill[k] for k in ("rebuild_s", "rebuilt_shards",
+                                               "rebuild_shards_per_s",
+                                               "bytes_per_repaired_shard",
+                                               "repair_overlap_ratio", "beta_shards")},
+                       "critical_path_top3": (kill.get("critical_path") or {}).get(
+                           "stages", [])[:3]}
+    rc, out, err, wall = soak_cli(os.path.join(root, "9d_nogpu"), {"CUDA_VISIBLE_DEVICES": ""})
+    check(rc != 0 and "no CUDA device" in err and not out.strip(),
+          f"cfs-chaos-soak with no visible GPU: exit code {rc}, stderr {err[-2000:]!r}")
+    check(not os.path.exists(os.path.join(root, "9d_nogpu")),
+          "cfs-chaos-soak with no visible GPU built a cluster")
+    steps["9d_cli_no_gpu"] = {"seconds": wall, "exit_code": rc,
+                              "error": err.strip().splitlines()[-1]}
+    return steps
+
+
 def _missing(cluster, unit, bid) -> bool:
     from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
 
@@ -1232,6 +1419,11 @@ def main() -> int:
                                   "device": torch.cuda.get_device_name(0),
                                   "nvidia_smi": nvidia_smi_line()}))
 
+        # phase 9: the soak harness on the card, B1
+        t0 = time.perf_counter()
+        soak_steps = phase_soak(os.path.join(tmp, "p9"), zero_counts, read_counts)
+        wall["9_soak"] = time.perf_counter() - t0
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -1250,6 +1442,9 @@ def main() -> int:
         "bound_by": main_rec["bound_by"],
         "library_ms": None,
     } for name, (src, rep) in replaces.items()]
+    log("soak " + json.dumps({"seconds": wall["9_soak"], "steps": soak_steps,
+                              "device": torch.cuda.get_device_name(0),
+                              "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))

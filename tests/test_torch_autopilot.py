@@ -8,9 +8,11 @@ cooldown, settling dedup, flap back-off, the sliding-hour budget, dry-run);
 int-safe knob nudges and the master actuators' leader gate (on a fake
 master); the alerts.on_firing/on_resolved hooks through a real
 AlertManager; rollup-fed edge dedup (observe_rollup); and the flight
-recorder's autopilot section. The cases that drive master/, console/,
-cfs-cli, cfs-top or cfs-events wait for those ports."""
+recorder's autopilot section; cfs-top's AUTO cell, and cfs-events' cause ->
+action -> resolution chain, by library and over a daemon's /events. The
+cases that drive master/, console/ or cfs-cli wait for those ports."""
 
+import io
 import json
 import time
 
@@ -412,3 +414,99 @@ def test_flightrec_bundle_freezes_autopilot_state(tmp_path, journal):
     finally:
         apc._default = None
 
+
+def test_cfstop_auto_row_math():
+    from chubaofs_tpu_torch.tools import cfstop
+
+    armed = {"cfs_autopilot_armed": 1.0,
+             "cfs_autopilot_budget_remaining": 4.0,
+             'cfs_autopilot_decisions{decision="executed"}': 7.0,
+             'cfs_autopilot_decisions{decision="considered"}': 20.0}
+    prev = dict(armed, **{
+        'cfs_autopilot_decisions{decision="executed"}': 5.0})
+    row = cfstop.compute_row("t:1", prev, armed, 10.0, {"status": "ok"})
+    assert row["auto_armed"] is True
+    assert row["auto_budget"] == 4
+    # only the executed slice counts, not considered/damped chatter
+    assert row["auto_acts"] == 2
+    assert cfstop._auto_cell(row) == "2/4"
+    # restart clamp: the counter fell -> post-restart total is the window
+    restarted = dict(armed, **{
+        'cfs_autopilot_decisions{decision="executed"}': 1.0})
+    row = cfstop.compute_row("t:1", armed, restarted, 10.0,
+                             {"status": "ok"})
+    assert row["auto_acts"] == 1
+    # a disarmed target renders '-', not 0/0
+    row = cfstop.compute_row("t:2", {}, {"cfs_put_ops": 3.0}, 10.0,
+                             {"status": "ok"})
+    assert row["auto_armed"] is False
+    assert row["auto_budget"] is None and row.get("auto_acts") is None
+    assert cfstop._auto_cell(row) == "-"
+    assert "AUTO" in cfstop.COLUMNS
+
+
+def test_correlate_alert_chain_orders_cause_action_resolution():
+    from chubaofs_tpu_torch.tools import cfsevents
+
+    fp = alerts.fingerprint("slo_failing", {"slo": "put_p99"})
+    evs = [
+        {"ts": 10.0, "type": "alert_firing", "severity": "critical",
+         "entity": "slo_failing", "role": "master", "addr": "m:1",
+         "detail": {"labels": {"slo": "put_p99"}}},
+        {"ts": 10.5, "type": "autopilot_considered", "severity": "info",
+         "entity": "b-hot", "role": "master", "addr": "m:1",
+         "detail": {"fingerprint": fp, "decision": "considered"}},
+        {"ts": 10.6, "type": "autopilot_executed", "severity": "info",
+         "entity": "b-hot", "role": "master", "addr": "m:1",
+         "detail": {"fingerprint": fp, "decision": "executed",
+                    "actuator": "rebalance_hot"}},
+        {"ts": 42.0, "type": "alert_resolved", "severity": "info",
+         "entity": "slo_failing", "role": "master", "addr": "m:1",
+         "detail": {"labels": {"slo": "put_p99"}}},
+        # chaff: another rule's alert and an uncorrelated event
+        {"ts": 11.0, "type": "alert_firing", "severity": "warning",
+         "entity": "repair_backlog", "role": "master", "addr": "m:1",
+         "detail": {"labels": {}}},
+        {"ts": 12.0, "type": "task_finished", "severity": "info",
+         "entity": "t1", "role": "master", "addr": "m:1", "detail": {}},
+    ]
+    chain = cfsevents.correlate_alert_chain(evs, fp)
+    assert [it["kind"] for it in chain] == ["alert", "action", "action",
+                                            "alert"]
+    assert [it["record"]["type"] for it in chain] == [
+        "alert_firing", "autopilot_considered", "autopilot_executed",
+        "alert_resolved"]
+    # dt is measured from the causal firing edge
+    assert chain[0]["dt"] == 0.0 and "cause" in chain[0]["line"]
+    assert chain[2]["dt"] == pytest.approx(0.6)
+    assert chain[3]["dt"] == pytest.approx(32.0)
+    assert "+32.000s" in chain[3]["line"]
+    # an unknown fingerprint yields an empty chain (the CLI then falls
+    # back to the trace-id join)
+    assert cfsevents.correlate_alert_chain(evs, "nope|x") == []
+
+
+def test_cfsevents_cli_correlates_by_fingerprint(journal):
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools import cfsevents
+
+    srv = RPCServer(Router(), module="evap").start()
+    try:
+        clock = FakeClock()
+        ap, _ = _mkap(clock)
+        fp = alerts.fingerprint("slo_failing", REPORT["labels"])
+        events.emit("alert_firing", "critical", entity="slo_failing",
+                    detail={"labels": dict(REPORT["labels"])})
+        ap.observe_firing(fp, REPORT)
+        events.emit("alert_resolved", entity="slo_failing",
+                    detail={"labels": dict(REPORT["labels"])})
+        buf = io.StringIO()
+        rc = cfsevents.main(["--addr", srv.addr, "--correlate", fp],
+                            out=buf)
+        text = buf.getvalue()
+        assert rc == 0
+        assert f"alert {fp}" in text and "resolved" in text
+        assert "autopilot_executed" in text and "cause" in text
+    finally:
+        srv.stop()

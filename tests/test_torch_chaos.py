@@ -1,0 +1,419 @@
+"""The cases of tests/test_chaos.py that need only the blobstore plane, run
+against the port on the CPU.
+
+Failpoint registry, seeded scheduler, soak acceptance on
+MiniCluster(device="cpu"). Tier-1 runs the registry unit tests plus seeded
+SMOKE soaks (small clusters, sub-second deadlines); the full 3-plan
+acceptance soak is `slow`. Everything here carries the `chaos` marker. The
+raft and FUSE cases wait for the ports of raft/, deploy.py and client/."""
+
+import os
+import struct
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from chubaofs_tpu_torch import chaos
+
+
+CPU = "cpu"
+# small shapes: one intra-op thread is enough, and it leaves the other test
+# workers' cores alone
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_chaos_clean():
+    """tests/conftest.py resets the JAX package's failpoints; the port keeps
+    its own registry, reset here."""
+    yield
+    chaos.reset()
+
+
+pytestmark = pytest.mark.chaos
+
+SMOKE = dict(n_nodes=6, disks_per_node=1, rounds=4, puts_per_round=2,
+             sizes=[8_000, 120_000], read_deadline=0.25, write_deadline=1.5)
+
+
+# -- failpoint registry --------------------------------------------------------
+
+
+def test_failpoint_unarmed_is_noop():
+    assert chaos.failpoint("never.armed") is None
+    assert chaos.corrupt_bytes("never.armed", b"abc") == b"abc"
+    assert chaos.armed() == {}
+
+
+def test_error_and_drop_actions():
+    chaos.arm("site.err", "error(wedged)")
+    with pytest.raises(chaos.FailpointError):
+        chaos.failpoint("site.err")
+    # FailpointError rides existing IO failure paths: it IS a ConnectionError
+    assert issubclass(chaos.FailpointError, ConnectionError)
+    chaos.arm("site.drop", "drop")
+    with pytest.raises(chaos.Dropped):
+        chaos.failpoint("site.drop")
+
+
+def test_delay_and_return_actions():
+    chaos.arm("site.delay", "delay(0.05)")
+    t0 = time.monotonic()
+    assert chaos.failpoint("site.delay") is None
+    assert time.monotonic() - t0 >= 0.05
+    chaos.arm("site.ret", 'return({"v": 7})')
+    act = chaos.failpoint("site.ret")
+    assert act is not None and act.arg == {"v": 7}
+
+
+def test_budget_prob_and_counters():
+    chaos.arm("site.b", "error*2")
+    for _ in range(2):
+        with pytest.raises(chaos.FailpointError):
+            chaos.failpoint("site.b")
+    assert chaos.failpoint("site.b") is None  # budget spent
+    assert chaos.hits("site.b") == 3
+    assert chaos.fired("site.b") == 2
+    # probability decisions are seeded by the NAME: identical run-over-run
+    chaos.arm("site.p", "error", prob=0.5, seed=42)
+    seq1 = []
+    for _ in range(20):
+        try:
+            chaos.failpoint("site.p")
+            seq1.append(0)
+        except chaos.FailpointError:
+            seq1.append(1)
+    chaos.disarm("site.p")
+    chaos.arm("site.p", "error", prob=0.5, seed=42)
+    seq2 = []
+    for _ in range(20):
+        try:
+            chaos.failpoint("site.p")
+            seq2.append(0)
+        except chaos.FailpointError:
+            seq2.append(1)
+    assert seq1 == seq2 and 0 < sum(seq1) < 20
+
+
+def test_per_node_arming_stacks_with_global():
+    chaos.arm("site.n", "error(node3)", node=3)
+    assert chaos.failpoint("site.n") is None        # no node context
+    assert chaos.failpoint("site.n", node=2) is None
+    with pytest.raises(chaos.FailpointError):
+        chaos.failpoint("site.n", node=3)
+    chaos.arm("site.n", "error(any)")               # global arming stacks
+    with pytest.raises(chaos.FailpointError):
+        chaos.failpoint("site.n", node=2)
+    chaos.disarm("site.n", node=3)                  # per-node lift only
+    with pytest.raises(chaos.FailpointError):
+        chaos.failpoint("site.n", node=3)           # global still armed
+
+
+def test_corrupt_bytes_flips_one_byte_deterministically():
+    chaos.arm("site.c", "corrupt", seed=7)
+    data = bytes(range(64))
+    out1 = chaos.corrupt_bytes("site.c", data)
+    assert out1 != data
+    assert len(out1) == len(data)
+    assert sum(a != b for a, b in zip(out1, data)) == 1
+    chaos.reset()
+    chaos.arm("site.c", "corrupt", seed=7)
+    assert chaos.corrupt_bytes("site.c", data) == out1
+
+
+def test_hang_until_released():
+    chaos.arm("site.h", "hang")
+    woke = threading.Event()
+
+    def waiter():
+        chaos.failpoint("site.h")
+        woke.set()
+
+    t = threading.Thread(target=waiter, daemon=True)
+    t.start()
+    assert not woke.wait(0.2), "hang failpoint did not block"
+    chaos.release("site.h")
+    assert woke.wait(5), "release did not unblock the waiter"
+    t.join(5)
+
+
+def test_env_spec_grammar():
+    n = chaos.load_spec(
+        "blobnode.get_shard=delay(2.0); raft.send=drop@0.1;"
+        "meta.submit=error(flaky)@0.5*3;access.read_shard=hang#2")
+    assert n == 4
+    a = chaos.armed()
+    assert a["blobnode.get_shard"] == ["delay(2.0)"]
+    assert a["raft.send"] == ["drop@0.1"]
+    assert a["meta.submit"] == ["error(flaky)@0.5*3"]
+    assert a["access.read_shard"] == ["hang#2"]
+    chaos.reset()
+    os.environ["CFS_FAILPOINTS_TEST"] = "x.y=delay(0.0)"
+    try:
+        assert chaos.load_env("CFS_FAILPOINTS_TEST") == 1
+        assert "x.y" in chaos.armed()
+    finally:
+        del os.environ["CFS_FAILPOINTS_TEST"]
+    for bad in ("x.y=explode", "x.y=delay(1", "x.y", "x.y=error@1.5"):
+        with pytest.raises(ValueError):
+            chaos.load_spec(bad)
+
+
+def test_unarmed_zero_overhead_guard():
+    """The registry must cost nothing while unarmed: the fast path is one
+    empty-dict probe, and the rs.py encode hot loop must not notice the
+    call site (the 'failpoints are free in production' contract)."""
+    from chubaofs_tpu_torch.chaos import failpoints
+
+    # 1) the unarmed path short-circuits BEFORE any action machinery: with
+    #    _eval poisoned, an unarmed call still returns clean
+    orig = failpoints._fire
+    failpoints._fire = None  # any traversal past the fast path would TypeError
+    try:
+        assert chaos.failpoint("rs.encode") is None
+    finally:
+        failpoints._fire = orig
+    # 2) absolute bound, generous for CI: ~0.5us/call measured, 10us allowed
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        chaos.failpoint("rs.encode")
+    assert time.perf_counter() - t0 < 1.0
+    # 3) the encode hot path: call-site cost is invisible against the kernel
+    from chubaofs_tpu_torch.ops.rs import get_kernel
+
+    k = get_kernel(4, 2, device=CPU)
+    data = np.random.default_rng(0).integers(
+        0, 256, (4, 4096), dtype=np.uint8)
+    np.asarray(k.encode(data))  # warm the jit cache
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.asarray(k.encode(data))
+        times.append(time.perf_counter() - t0)
+    base = sorted(times)[2]
+    # one failpoint call (~us) must be noise against a device dispatch (~ms);
+    # assert the total stays within 100us + 3x of the median re-measure
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.asarray(k.encode(data))
+        times.append(time.perf_counter() - t0)
+    again = sorted(times)[2]
+    assert abs(again - base) < max(3 * base, 100e-6)
+
+
+# -- scheduler + soak ----------------------------------------------------------
+
+
+def test_chaos_smoke_node_wedge(tmp_path):
+    """Tier-1 smoke: PUT -> wedge -> degraded GET -> heal -> converge on a
+    small cluster, and the injection must actually bite."""
+    from chubaofs_tpu_torch.chaos.soak import run_soak
+
+    res = run_soak(str(tmp_path), "node_wedge", seed=11, **SMOKE, device=CPU)
+    assert res["ok"] and res["puts"] >= 8 and res["gets"] > 0
+    kinds = [(e["event"], e["fault"]) for e in res["events"]]
+    assert ("inject", "node_wedge") in kinds and ("lift", "node_wedge") in kinds
+    # the wedged node was actually exercised through the armed call sites
+    assert res["fired"], res
+
+
+def test_chaos_smoke_link_drop(tmp_path):
+    from chubaofs_tpu_torch.chaos.soak import run_soak
+
+    res = run_soak(str(tmp_path), "link_drop", seed=13, **SMOKE, device=CPU)
+    assert res["ok"]
+    assert res["fired"], res
+
+
+def test_chaos_event_log_reproducible(tmp_path):
+    """THE determinism acceptance: same seed + same plan => byte-identical
+    injection event logs across two fresh clusters."""
+    from chubaofs_tpu_torch.chaos.soak import run_soak
+
+    a = run_soak(str(tmp_path / "a"), "shard_bitrot", seed=21, **SMOKE, device=CPU)
+    b = run_soak(str(tmp_path / "b"), "shard_bitrot", seed=21, **SMOKE, device=CPU)
+    assert a["ok"] and b["ok"]
+    assert a["events"] == b["events"]
+    assert any(e["event"] == "inject" for e in a["events"])
+    # a different seed must actually change the schedule (anti-vacuous)
+    c = run_soak(str(tmp_path / "c"), "shard_bitrot", seed=22, **SMOKE, device=CPU)
+    assert c["events"] != a["events"]
+
+
+@pytest.mark.slow
+def test_chaos_soak_acceptance_all_plans(tmp_path):
+    """The full acceptance: node wedge, link drop and shard bit-rot each
+    complete PUT -> fault -> degraded GET -> heal -> converge with zero data
+    loss at production-shaped scale, each with a reproducible event log."""
+    from chubaofs_tpu_torch.chaos.soak import run_soak
+
+    for plan in ("node_wedge", "link_drop", "shard_bitrot"):
+        a = run_soak(str(tmp_path / plan), plan, seed=5, rounds=6,
+                     puts_per_round=2, n_nodes=9, disks_per_node=2, device=CPU)
+        b = run_soak(str(tmp_path / (plan + "2")), plan, seed=5, rounds=6,
+                     puts_per_round=2, n_nodes=9, disks_per_node=2, device=CPU)
+        assert a["ok"] and b["ok"], plan
+        assert a["events"] == b["events"], plan
+
+
+def test_chaos_soak_tool_smoke(tmp_path):
+    """The CLI harness end-to-end (one fast plan, repro verified)."""
+    from chubaofs_tpu_torch.tools.chaos_soak import main
+
+    rc = main(["--plan", "shard_bitrot", "--seed", "3", "--rounds", "3",
+               "--root", str(tmp_path), "--verify-repro", "--json",
+               "--device", CPU])
+    assert rc == 0
+
+
+def test_crash_restart_rebuilds_node(tmp_path):
+    """crash_restart closes the engine and rebuilds it from disk; acked
+    blobs survive the crash."""
+    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
+    from chubaofs_tpu_torch.chaos.scheduler import ChaosScheduler, Fault, FaultPlan
+
+    c = MiniCluster(str(tmp_path), n_nodes=6, disks_per_node=1, device=CPU)
+    c.access.read_deadline = 0.25
+    c.access.write_deadline = 1.5
+    try:
+        rng = np.random.default_rng(0)
+        data = rng.integers(0, 256, 120_000, dtype=np.uint8).tobytes()
+        loc = c.access.put(data)
+        plan = FaultPlan("crash", [Fault("crash_restart", at=0, duration=1,
+                                         target=3)])
+        sched = ChaosScheduler(c, plan, seed=1)
+        old = c.nodes[3]
+        sched.step()  # crash
+        assert c.access.get(loc) == data  # degraded read around the crash
+        sched.step()  # restart
+        assert c.nodes[3] is not old, "engine was not rebuilt"
+        assert c.access.get(loc) == data
+    finally:
+        c.close()
+
+
+# -- probe, dedupe and hedged-gather findings, proven by chaos tests ----------
+
+
+def _mini_access(tmp_path, n_nodes=6, max_workers=2, read_deadline=0.3,
+                 write_deadline=2.5):
+    from chubaofs_tpu_torch.blobstore.access import Access
+    from chubaofs_tpu_torch.blobstore.cluster import MiniCluster
+
+    c = MiniCluster(str(tmp_path), n_nodes=n_nodes, disks_per_node=1, device=CPU)
+    c.access = Access(c.cm, c.proxy, c.nodes, codec=c.codec,
+                      max_workers=max_workers, read_deadline=read_deadline,
+                      write_deadline=write_deadline)
+    return c
+
+
+def test_probes_never_starve_puts(tmp_path):
+    """ADVICE item 2: wedge a blobnode, drive degraded GETs (each schedules
+    a background probe of the unreached shards), then prove PUTs still
+    complete promptly — probes live on their own executor, never the
+    PUT/write pool, with every probe read bounded by read_deadline."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    c = _mini_access(tmp_path, max_workers=16)
+    # shrink ONLY the write pool: with probes (mis)placed there, two hung
+    # probe reads would starve every stripe write instantly
+    c.access._pool = ThreadPoolExecutor(max_workers=2,
+                                        thread_name_prefix="access")
+    try:
+        rng = np.random.default_rng(1)
+        blobs = []
+        for _ in range(3):
+            data = rng.integers(0, 256, 60_000, dtype=np.uint8).tobytes()
+            blobs.append((c.access.put(data), data))
+        vol = c.cm.get_volume(blobs[0][0].blobs[0].vid)
+        wedged = vol.units[0].node_id
+        chaos.arm("access.read_shard", "hang", node=wedged)
+        # degraded GETs: each leaves the wedged shard unreached -> probed
+        for loc, data in blobs:
+            assert c.access.get(loc) == data
+        # probes are now hanging against the wedged node on their own pool;
+        # an unrelated PUT must not queue behind them
+        t0 = time.monotonic()
+        loc = c.access.put(rng.integers(0, 256, 60_000,
+                                        dtype=np.uint8).tobytes())
+        dt = time.monotonic() - t0
+        assert loc is not None
+        assert dt < c.access.write_deadline, (
+            f"PUT took {dt:.2f}s behind wedged probes")
+        assert chaos.fired("access.read_shard") > 0
+    finally:
+        chaos.reset()
+        c.close()
+
+
+def test_probe_dedupes_per_blob(tmp_path):
+    """A burst of CONCURRENT degraded GETs of one hot blob schedules one
+    probe, not one per GET."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    c = _mini_access(tmp_path, max_workers=32, read_deadline=0.5)
+    try:
+        rng = np.random.default_rng(2)
+        data = rng.integers(0, 256, 60_000, dtype=np.uint8).tobytes()
+        loc = c.access.put(data)
+        vol = c.cm.get_volume(loc.blobs[0].vid)
+        chaos.arm("access.read_shard", "hang", node=vol.units[0].node_id)
+        submitted = []
+        orig = c.access._probe_shards
+
+        def counting(*a, **kw):
+            submitted.append(1)
+            return orig(*a, **kw)
+
+        c.access._probe_shards = counting
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            results = list(pool.map(lambda _: c.access.get(loc), range(4)))
+        assert all(r == data for r in results)
+        # the 4 degraded gathers overlapped; the (vid, bid) dedupe admits one
+        # in-flight probe (two only if a gather straddled the probe's end)
+        assert len(submitted) <= 2, "probe not deduped per (vid, bid)"
+    finally:
+        chaos.reset()
+        c.close()
+
+
+def test_hedged_gather_replaces_hung_reads(tmp_path):
+    """ADVICE item 3: with one failed data shard and THREE silently hung
+    replicas (more than ceil(M/2)), the initial hedge set cannot reach N —
+    only launching replacements on read_deadline (not just on failure)
+    reaches the healthy never-tried shards. EC12P4 on 16 single-disk nodes
+    puts one stripe unit per node, so per-node failpoints address shards."""
+    from chubaofs_tpu_torch.codec.codemode import CodeMode
+
+    c = _mini_access(tmp_path, n_nodes=16, max_workers=32,
+                     read_deadline=0.3, write_deadline=6.0)
+    try:
+        rng = np.random.default_rng(3)
+        data = rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+        loc = c.access.put(data, code_mode=CodeMode.EC12P4)
+        vol = c.cm.get_volume(loc.blobs[0].vid)
+        node_of = [u.node_id for u in vol.units]
+        # data shard 0 fails fast; parities 12..14 hang silently. The
+        # survivor-exact gather needs ONE replacement for shard 0 and walks
+        # the candidate chain 12 (hung) -> hedge 13 (hung) -> hedge 14
+        # (hung) -> hedge 15 (healthy): only the read_deadline hedge ever
+        # reaches the healthy never-tried shard 15.
+        chaos.arm("access.read_shard", "error(dead)", node=node_of[0])
+        for idx in (12, 13, 14):
+            chaos.arm("access.read_shard", "hang", node=node_of[idx])
+        t0 = time.monotonic()
+        got = c.access.get(loc)
+        dt = time.monotonic() - t0
+        assert got == data, "hedged gather failed against hung replicas"
+        assert dt < c.access.write_deadline + 2.0
+        # every armed shard tried exactly once on the foreground path:
+        # 0 (failed) + 12,13,14 (hedged past) — never the old all-parity
+        # fan-out, and the hung originals are replaced, not re-launched
+        assert chaos.fired("access.read_shard") == 4
+    finally:
+        chaos.reset()
+        c.close()

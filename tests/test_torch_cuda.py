@@ -283,3 +283,22 @@ def test_mesh_dryrun_and_entry_on_card(dev):
     assert out.device.type == "cuda" and out.shape == (2, 16, 1024)
     got = entry.dryrun_multichip(4, shard_len=65536)
     assert (got["dp"], got["sp"]) == (2, 2)
+
+
+def test_kill_blobnode_soak_on_card(dev, tmp_path, monkeypatch):
+    """The repair plane's acceptance scenario at smoke size with the codec
+    on the card: every acked blob rebuilds byte-identical through B1, and
+    B2 stays idle with CFS_GF_PIPELINED unset."""
+    from chubaofs_tpu_torch.chaos.soak import run_kill_soak
+
+    monkeypatch.delenv("CFS_GF_PIPELINED", raising=False)
+    b1, b2 = cuda_gf.LAUNCHES, dict(cuda_gf_pipe.LAUNCHES)
+    res = run_kill_soak(str(tmp_path), seed=7, device="cuda", warm_puts=6,
+                        live_puts=3, hb_timeout=0.4, read_deadline=0.4,
+                        write_deadline=2.5, max_wait_s=90.0,
+                        sizes=[120_000, 700_000])
+    assert res["ok"], res
+    assert res["rebuilt_shards"] > 0 and res["rebuild_shards_per_s"] > 0
+    assert res["alerts_fired"] == ["broken_disks"]
+    assert cuda_gf.LAUNCHES > b1
+    assert cuda_gf_pipe.LAUNCHES == b2

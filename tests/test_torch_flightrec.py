@@ -9,8 +9,9 @@ Hygiene: the size budget evicts oldest-first (never the bundle just
 written), a flapping fingerprint dedups inside the cooldown, and a failing
 section degrades the bundle instead of failing it. Postmortem: cfs-stat
 --bundle reads a bundle, and cfs-doctor lists, inspects and diffs bundles
-(and refuses a directory that is none). The console collector and
-cfs-events / cfs-trace --bundle wait for their ports."""
+(and refuses a directory that is none), cfs-events and cfs-trace --bundle
+read one, and a failing soak attaches one. The console collector waits for
+its port."""
 
 import io
 import json
@@ -284,3 +285,50 @@ def test_read_bundle_rejects_non_bundle(tmp_path):
 
     with pytest.raises(ValueError):
         read_bundle(str(tmp_path))
+
+
+def test_cfs_events_reads_bundle(collected_bundle):
+    from chubaofs_tpu_torch.tools import cfsevents
+
+    out = io.StringIO()
+    rc = cfsevents.main(["--bundle", collected_bundle], out=out)
+    assert rc == 0
+    assert "incident_capture" in out.getvalue() \
+        or "bench_tick" in out.getvalue()
+    out = io.StringIO()
+    rc = cfsevents.main(["--bundle", collected_bundle, "--alerts"], out=out)
+    assert rc == 0
+    assert "broken_disks" in out.getvalue()
+
+
+def test_cfs_trace_reads_bundle(collected_bundle):
+    from chubaofs_tpu_torch.tools import cfstrace
+    from chubaofs_tpu_torch.utils import flightrec as fr
+
+    records = fr.bundle_payload(collected_bundle)["traces"]["records"]
+    mine = [r for r in records if r.get("op") == "op_slow"]
+    assert mine, "fixture's forced slowop span is not in the bundle"
+    tid = mine[0]["trace_id"]
+    out = io.StringIO()
+    rc = cfstrace.main(["--bundle", collected_bundle, "--top"], out=out)
+    assert rc == 0
+    out = io.StringIO()
+    rc = cfstrace.main(["--bundle", collected_bundle, tid], out=out)
+    assert rc == 0
+    assert "op_slow" in out.getvalue()
+
+
+def test_soak_failure_attaches_bundle():
+    from chubaofs_tpu_torch.chaos.soak import SoakFailure, _capture_on_failure
+
+    @_capture_on_failure
+    def failing_soak():
+        raise SoakFailure("gate tripped: data loss")
+
+    with pytest.raises(SoakFailure) as ei:
+        failing_soak()
+    bundle = ei.value.bundle
+    assert bundle and os.path.isdir(bundle)
+    payload = flightrec.bundle_payload(bundle)
+    assert payload["manifest"]["trigger"] == "soak_failure"
+    assert payload["alert"]["error"] == "gate tripped: data loss"

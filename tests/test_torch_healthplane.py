@@ -4,10 +4,13 @@ plane, run against the port on the CPU.
 Sampling profiler (zero-overhead when disarmed, thread buckets, bounded
 capture), metric history (ring, server-side rates, restart clamp, exposition
 key and histogram helpers), SLO burn windows, the cfs-stat restart clamp, the
-evloop loop-lag histogram, and /health flipping failing under a sustained
-latency failpoint on a MiniCluster(device="cpu"). The cases that also need
-console/, cfs-top or cfs-trace wait for those ports."""
+evloop loop-lag histogram, /health flipping failing under a sustained
+latency failpoint on a MiniCluster(device="cpu"), the profile/history/health
+acceptance over a PUT burst (with cfs-trace --prof on the same side-door),
+and cfs-top's rollup split and row math. The case that needs console/
+waits for that port."""
 
+import io
 import json
 import os
 import socket
@@ -480,3 +483,135 @@ def test_health_flips_failing_under_sustained_latency(burst_cluster,
     assert rep["status"] == "failing", rep
     assert any("put_p99" in r for r in rep["reasons"]), rep["reasons"]
 
+
+def test_minicluster_burst_profile_history_health(burst_cluster, rng):
+    """The acceptance demo: profile a PUT burst, attribute wall-clock
+    between Python glue and codec dispatch, read history rates, get a
+    health verdict — all over the daemon side-doors."""
+    from chubaofs_tpu_torch.rpc.evloop import EvloopServer
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+
+    mc = burst_cluster
+    # an evloop packet server shares the process (as in any datanode):
+    # its shard threads must bucket in the profile
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(8)
+    ev = EvloopServer(lst, lambda msg: None, name="hp")
+    ev.start()
+    srv = RPCServer(Router(), module="hp").start()
+    hist = metrichist.default_history()
+    data = rng.integers(0, 256, 200_000, dtype=np.uint8).tobytes()
+    try:
+        loc = mc.access.put(data)  # warmup: jit compile outside the window
+        assert mc.access.get(loc) == data
+        result: dict = {}
+
+        def grab():
+            result["prof"] = _get_json(
+                srv.addr, "/debug/prof?seconds=1.2&json=1", timeout=60)
+
+        th = threading.Thread(target=grab)
+        th.start()
+        hist.record()
+        locs = []
+        deadline = time.monotonic() + 1.3
+        while time.monotonic() < deadline:
+            locs.append(mc.access.put(data))
+        hist.record()
+        for lo in locs[:3]:
+            assert mc.access.get(lo) == data
+        hist.record()
+        th.join(timeout=90)
+        prof = result["prof"]
+
+        # -- profile: >=90% of sampled wall time lands in named buckets,
+        # and the buckets distinguish evloop shards from the codec drain
+        assert prof["samples"] > 0 and prof["coverage"] >= 0.9, prof
+        buckets = prof["threads"]
+        assert any(b.startswith("evloop-hp") for b in buckets), buckets
+        assert "codec-svc" in buckets, buckets
+        # collapsed stacks name real code: the codec drain loop is visible,
+        # i.e. the profile attributes glue vs codec dispatch
+        assert "service.py" in prof["collapsed"]
+
+        # -- history: >=3 snapshots, a nonzero server-side rate() on the
+        # access families the burst drove
+        out = _get_json(
+            srv.addr, "/metrics/history?rate=1&filter=cfs_access&n=10")
+        assert out["count"] >= 3
+        assert any(v > 0 for r in out["rates"] for v in r["rates"].values())
+
+        # -- health: ok on the healthy cluster (default thresholds)
+        health = _get_json(srv.addr, "/health")
+        assert health["status"] == "ok", health
+        assert "put_p99" in health["slos"]
+
+        # -- cfs-trace --prof rides the same side-door
+        from chubaofs_tpu_torch.tools.cfstrace import main as trace_main
+
+        buf = io.StringIO()
+        assert trace_main(["--prof", "0.2", "--addr", srv.addr],
+                          out=buf) == 0
+        assert ";" in buf.getvalue()  # collapsed-stack lines
+    finally:
+        srv.stop()
+        ev.stop()
+        lst.close()
+
+
+def test_cfstop_split_rollup_marks_unreachable():
+    from chubaofs_tpu_torch.tools.cfstop import split_rollup
+
+    text = ("# == target 1.2.3.4:17010 ==\n"
+            "# TYPE cfs_access_put histogram\n"
+            "cfs_access_put_count 7\n"
+            "# == target 5.6.7.8:17010 UNREACHABLE: timed out ==\n"
+            "# == target 9.9.9.9:17010 ==\n"
+            "cfs_evloop_backpressure{shard=\"0\",srv=\"pkt\"} 3\n")
+    sections = split_rollup(text)
+    assert sections["1.2.3.4:17010"]["cfs_access_put_count"] == 7.0
+    assert sections["5.6.7.8:17010"] is None
+    assert len(sections["9.9.9.9:17010"]) == 1
+
+
+def test_cfstop_row_math():
+    from chubaofs_tpu_torch.tools.cfstop import compute_row
+
+    prev = {"cfs_access_put_count": 100.0,
+            'cfs_access_put_bucket{le="0.01"}': 100.0,
+            "cfs_codec_batch_jobs_sum": 40.0,
+            "cfs_codec_batch_jobs_count": 10.0,
+            'cfs_evloop_backpressure{shard="0",srv="pkt"}': 0.0}
+    cur = {"cfs_access_put_count": 150.0,
+           'cfs_access_put_bucket{le="0.01"}': 150.0,
+           "cfs_codec_batch_jobs_sum": 120.0,
+           "cfs_codec_batch_jobs_count": 20.0,
+           'cfs_evloop_backpressure{shard="0",srv="pkt"}': 5.0,
+           'cfs_evloop_conns{inst="0",shard="0",srv="pkt"}': 3.0,
+           'cfs_scheduler_tasks{kind="repair",state="pending"}': 2.0}
+    row = compute_row("t:1", prev, cur, 10.0, {"status": "ok"})
+    assert row["put_s"] == 5.0
+    assert row["put99_ms"] == 10.0
+    assert row["conns"] == 3 and row["bp_s"] == 0.5
+    assert row["codec_occ"] == 8.0  # (120-40)/(20-10)
+    assert row["repair_q"] == 2 and row["slo"] == "ok"
+    # an unreachable target renders as a failing row, never vanishes
+    dead = compute_row("t:2", None, None, 10.0, None)
+    assert dead["slo"] == "failing" and dead["unreachable"]
+    # no prior frame (first poll / last scrape failed): flow cells stay
+    # None — a delta against zero would render lifetime totals as a rate
+    fresh = compute_row("t:3", None, cur, 10.0, {"status": "ok"})
+    assert fresh.get("put_s") is None and fresh.get("put99_ms") is None
+    assert fresh["conns"] == 3 and fresh["repair_q"] == 2  # state still reads
+    # a transient metrics-scrape failure must not overwrite a live health
+    # verdict: the row keeps 'ok' with empty cells, no unreachable flag
+    hiccup = compute_row("t:4", prev, None, 10.0, {"status": "ok",
+                                                   "reasons": []})
+    assert hiccup["slo"] == "ok" and not hiccup.get("unreachable")
+    # daemon restarted between polls (counter went DOWN): the post-restart
+    # total is the window's delta — a busy restarted daemon is not idle
+    restarted = dict(cur, **{"cfs_access_put_count": 40.0})
+    row = compute_row("t:5", prev, restarted, 10.0, {"status": "ok"})
+    assert row["put_s"] == 4.0  # 40 post-restart ops / 10s, not 0

@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad, names = proc.stdout.rstrip("\n").split("\n")
-    assert int(count) >= 73, proc.stdout  # every module of the slices imported
+    assert int(count) >= 78, proc.stdout  # every module of the slices imported
     assert bad == "", f"port pulled in: {bad}"
     # the daemon slice's planes and the grid slice are on the walk
     names = set(names.split(","))
@@ -49,13 +49,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "rpc.client", "rpc.pool", "autopilot.controller",
                 "tools.cfsstat", "cli.blobstore", "cmd", "blobstore.gateway",
                 "blobstore.cmd", "utils.flightrec", "utils.shutdown",
-                "parallel.mesh", "entry", "tools.cfsdoctor"):
+                "parallel.mesh", "entry", "tools.cfsdoctor", "tools.cfstrace",
+                "tools.cfsevents", "tools.cfstop", "tools.chaos_soak",
+                "chaos.soak"):
         assert f"chubaofs_tpu_torch.{mod}" in names, mod
 
 
 def test_port_sources_name_no_jax_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 74
+    assert len(files) >= 79
     for f in files:
         hits = _BAD_IMPORT.findall(f.read_text(encoding="utf-8"))
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -128,6 +130,17 @@ def test_slice_modules_exist_with_reference_names():
                      "sharded_gf_matmul", "ungroup_stripe"],
         "tools.cfsdoctor": ["read_bundle", "summarize", "diff_bundles", "main"],
         "entry": ["entry", "dryrun_multichip"],
+        "tools.cfstrace": ["build_tree", "critical_path", "stage_overlap", "waterfall",
+                           "flamegraph", "aggregate", "render_top", "render_report",
+                           "read_dir", "fetch", "main"],
+        "tools.cfsevents": ["fetch_events", "fetch_alerts", "fetch_spans",
+                            "correlate_alert_chain", "correlate", "bundle_events",
+                            "bundle_alerts", "bundle_spans", "main"],
+        "tools.cfstop": ["split_rollup", "compute_row", "compute_rows", "render",
+                         "frame_record", "main"],
+        "chaos.soak": ["SoakFailure", "run_soak", "run_kill_soak", "run_cache_soak",
+                       "run_meta_split_soak"],
+        "tools.chaos_soak": ["ACCEPTANCE_PLANS", "main"],
     }
     for mod, attrs in names.items():
         assert (PKG / (mod.replace(".", "/") + ".py")).exists() or (PKG / mod / "__init__.py").exists()

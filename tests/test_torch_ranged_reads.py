@@ -2,8 +2,8 @@
 
 Partial-stripe ranged reads: byte-window shard gather, range-scoped degraded
 decode, block-granular cache, the cfs-stat read rollup, and the HTTP Range
-surface of the access gateway (range parsing, 206, 416, 400). The cfs-top
-read-amp column waits for the port of tools/cfstop.py."""
+surface of the access gateway (range parsing, 206, 416, 400), and the cfs-top
+read-amp column."""
 
 import os
 
@@ -220,7 +220,7 @@ def test_degraded_range_decodes_window_not_stripe(cluster, rng):
 
 
 def test_degraded_gather_skips_unselected_parity(cluster, rng):
-    """Satellite 2: the degraded window gather launches survivor reads it
+    """The degraded window gather launches survivor reads it
     SELECTS — with one lost data shard, one replacement suffices, so the
     foreground read set is the in-window data shards plus exactly enough
     survivors, never all parity. Only count=True reads are foreground; the
@@ -415,3 +415,24 @@ def test_gateway_range_416_and_400(gateway_pair, rng):
     assert status == 400
     # plain (un-ranged) GET still answers 200 with the whole object
     assert client.get(loc) == data
+
+
+def test_cfstop_read_amp_column():
+    from chubaofs_tpu_torch.tools.cfstop import COLUMNS, compute_row, render
+
+    prev = {'cfs_access_read_bytes{kind="requested"}': 1000.0,
+            'cfs_access_read_bytes{kind="shards_read"}': 1000.0}
+    cur = {'cfs_access_read_bytes{kind="requested"}': 2000.0,
+           'cfs_access_read_bytes{kind="shards_read"}': 5000.0}
+    row = compute_row("t1", prev, cur, 1.0, {"status": "ok"})
+    assert row["read_amp"] == pytest.approx(4.0)
+    assert "RDAMP" in COLUMNS
+    assert "4" in render([row])
+    # no reads in the window -> '-' (None), never a fake amp
+    row2 = compute_row("t2", {"x": 1.0}, {"x": 2.0}, 1.0, {"status": "ok"})
+    assert row2["read_amp"] is None
+    # daemon restart: post-restart value IS the delta (never negative)
+    cur3 = {'cfs_access_read_bytes{kind="requested"}': 100.0,
+            'cfs_access_read_bytes{kind="shards_read"}': 300.0}
+    row3 = compute_row("t3", prev, cur3, 1.0, {"status": "ok"})
+    assert row3["read_amp"] == pytest.approx(3.0)
