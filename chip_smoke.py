@@ -85,15 +85,38 @@ result line:
             without building a kernel, and exit non-zero naming the missing
             device when CUDA_VISIBLE_DEVICES is empty.
 
-Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c) is driven
-with every launch count set to 0 just before it and read just after. Output
-ends with a `daemon` JSON line (phase 7's steps), a `mesh` JSON line (phase
-8's steps, B1 launches, the card's name and power limit), a `soak` JSON line
-(phase 9's steps: wall seconds, rebuild seconds, shards and shards/s, bytes
-per repaired shard, download/decode overlap, the top three stages of the
-cfs-trace critical path, the rebuild's split over download, decode and
-write-back, B1 launches), a `kernels` JSON line, the card's name and power
-limit as nvidia-smi reports them, and the one-line result JSON.
+  10. filesystem path, B1 only (B2 launches must be 0 in every step):
+            FsCluster(root, device="cuda") at the reference's default layout
+            (3 raft nodes carrying the master, metanode and authnode groups,
+            4 datanodes x 2 disks, 9 blobnodes x 2 disks), a cold and a hot
+            volume, driven through FsClient with 4 client threads. (a) cold
+            write: 16 directories x 64 files of 4 KiB-256 KiB, 8 files of
+            eight 4 MiB appends, then 10,000 empty creates in one directory;
+            (b) cold read: every file whole and 256 seeded ranges, then every
+            blob's stored stripe against the numpy encode; (c) two blobnode
+            disks lose every shard: every file read again (degraded), then
+            tick_background until every lost shard is back, byte-equal, and
+            those stripes checked again; (d) hot volume: 64 files of 1 MiB,
+            16 appends, one in-place overwrite, all read back; B1 launches
+            must be 0; (e) unlink half the cold files, tick until the
+            freelists drain, and every purged blob must be gone from the
+            blobnodes; (f) close, open FsCluster on the same root and read
+            64 seeded cold files and 8 hot ones back. B1 must launch in (a)
+            and (c); healthy reads of a systematic code and purges code
+            nothing, so (b), (e) and (f) report what they launched.
+
+Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c, each step
+of 10) is driven with every launch count set to 0 just before it and read
+just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
+JSON line (phase 8's steps, B1 launches, the card's name and power limit), a
+`soak` JSON line (phase 9's steps: wall seconds, rebuild seconds, shards and
+shards/s, bytes per repaired shard, download/decode overlap, the top three
+stages of the cfs-trace critical path, the rebuild's split over download,
+decode and write-back, B1 launches), an `fs` JSON line (phase 10's steps:
+wall seconds, cold write and read MiB/s, creates/s, B1 launches per step, B2
+launches, shards rebuilt, the card's name and power limit), a `kernels` JSON
+line, the card's name and power limit as nvidia-smi reports them, and the
+one-line result JSON.
 """
 
 from __future__ import annotations
@@ -449,17 +472,15 @@ def phase_encoder(new_encoder, CodeMode) -> float:
 # -- phases 5 and 6: the gateway path ---------------------------------------------
 
 
-def put_concurrently(access_of, payloads: dict[str, bytes], clients: int) -> dict:
-    """PUT every payload, `clients` threads at a time, thread i through
-    access_of(i); returns name -> Location."""
-    locs, errors = {}, []
-    names = list(payloads)
+def run_clients(work, items: list, clients: int, what: str) -> None:
+    """work(i, item) for every item, `clients` threads at a time, thread i
+    taking items[i::clients]."""
+    errors = []
 
     def client(i: int):
         try:
-            access = access_of(i)
-            for name in names[i::clients]:
-                locs[name] = access.put(payloads[name])
+            for item in items[i::clients]:
+                work(i, item)
         except Exception as e:  # reported below, fails the phase
             errors.append(f"client {i}: {type(e).__name__}: {e}")
 
@@ -468,8 +489,21 @@ def put_concurrently(access_of, payloads: dict[str, bytes], clients: int) -> dic
         th.start()
     for th in threads:
         th.join(timeout=600)
-    check(not any(th.is_alive() for th in threads), "PUT clients hung")
-    check(not errors, f"PUT errors: {errors}")
+    check(not any(th.is_alive() for th in threads), f"{what} clients hung")
+    check(not errors, f"{what} errors: {errors}")
+
+
+def put_concurrently(access_of, payloads: dict[str, bytes], clients: int) -> dict:
+    """PUT every payload, `clients` threads at a time, thread i through
+    access_of(i); returns name -> Location."""
+    locs, access = {}, {}
+
+    def put(i, name):
+        if i not in access:
+            access[i] = access_of(i)
+        locs[name] = access[i].put(payloads[name])
+
+    run_clients(put, list(payloads), clients, "PUT")
     return locs
 
 
@@ -1233,6 +1267,293 @@ def phase_soak(root: str, zero_counts, read_counts) -> dict:
     return steps
 
 
+# -- phase 10: the filesystem path ------------------------------------------------
+
+FS_REPAIR_DEADLINE_S = 180  # phase 10c: tick_background rebuilds every lost shard
+FS_PURGE_DEADLINE_S = 60  # phase 10e: tick_background drains every freelist
+
+
+def fs_tree(dirs: int, files: int, bigs: int):
+    """Phase 10's seeded cold tree: `dirs` directories of `files` files of
+    4 KiB-256 KiB each, and `bigs` files of eight 4 MiB appends. Returns
+    (rng, path -> list of appends)."""
+    rng = np.random.default_rng(10)
+    tree = {}
+    for d in range(dirs):
+        for f in range(files):
+            tree[f"/d{d:02d}/f{f:02d}"] = [rng.bytes(int(rng.integers(4 * 1024, 256 * 1024 + 1)))]
+    for b in range(bigs):
+        tree[f"/big/b{b}"] = [rng.bytes(4 * MiB) for _ in range(8)]
+    return rng, tree
+
+
+def fs_blobs(fs, tree: dict, paths) -> list:
+    """(Location, blob, payload) of every blob under `paths`, from the
+    inodes' obj_extents."""
+    from chubaofs_tpu_torch.blobstore.access import Location
+
+    out = []
+    for path in paths:
+        data = b"".join(tree[path])
+        pos = 0
+        for ext in fs.meta.get_inode(fs.resolve(path)).obj_extents:
+            loc = Location.from_json(ext["loc"])
+            out += [(loc, blob, payload) for blob, payload in
+                    blob_payloads(loc, data[pos:pos + ext["size"]])]
+            pos += ext["size"]
+        check(pos == len(data), f"{path}: obj_extents cover {pos} of {len(data)} bytes")
+    return out
+
+
+def check_fs_stripes(cluster, blobs, what: str, clients: int) -> None:
+    """Every blob's stored stripe against the numpy encode (numpy's table
+    lookups release the GIL, so `clients` threads share the work)."""
+    from chubaofs_tpu_torch.codec.codemode import get_tactic
+    from chubaofs_tpu_torch.ops import gf256
+
+    def one(i, item):
+        loc, blob, payload = item
+        want = oracle_stripe(gf256, get_tactic(loc.code_mode), payload)
+        check(np.array_equal(stored_stripe(cluster.blobstore, blob), want),
+              f"blob {blob.vid}/{blob.bid}: {what} stripe != oracle")
+
+    run_clients(one, blobs, clients, "stripe check")
+
+
+def read_tree(fs_of, tree: dict, paths, clients: int) -> None:
+    def read(i, path):
+        check(fs_of(i).read_file(path) == b"".join(tree[path]), f"read {path}")
+
+    run_clients(read, sorted(paths), clients, "read")
+
+
+def phase_fs(root: str, device, zero_counts, read_counts, dirs: int = 16, files: int = 64,
+             bigs: int = 8, creates: int = 10_000, ranges: int = 256, hot_files: int = 64,
+             clients: int = 4) -> dict:
+    """Phase 10: FsCluster(root, device) at the reference's default layout
+    (3 raft nodes with the master, metanode and authnode groups, 4 datanodes
+    x 2 disks, 9 blobnodes x 2 disks), a cold and a hot volume, through
+    FsClient. Every step runs with the launch counts set to 0 just before it
+    and read just after. Returns the `fs` line's fields."""
+    from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
+    from chubaofs_tpu_torch.blobstore.clustermgr import DISK_BROKEN
+    from chubaofs_tpu_torch.deploy import FsCluster
+    from chubaofs_tpu_torch.raft.server import run_until
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    steps, launches, out = {}, {}, {}
+    rng, tree = fs_tree(dirs, files, bigs)
+    paths = sorted(tree)
+    cold_bytes = sum(len(c) for chunks in tree.values() for c in chunks)
+
+    def step(name, fn):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        launches[name] = read_counts()
+        steps[name] = time.perf_counter() - t0
+        check(launches[name]["gf_matmul_pipe"] == launches[name]["gf_matmul_pipe_static"] == 0,
+              f"10 {name}: B2 launched without CFS_GF_PIPELINED: {launches[name]}")
+        return res
+
+    t0 = time.perf_counter()
+    c = FsCluster(root, device=device)
+    c.create_volume("cold")
+    c.create_volume("hot", cold=False)
+    cold = [c.client("cold") for _ in range(clients)]
+    steps["boot"] = time.perf_counter() - t0
+    try:
+        # 10a: cold write, `clients` threads, then the namespace-scale creates
+        def write(i, path):
+            fs = cold[i]
+            fs.create(path)
+            for chunk in tree[path]:
+                fs.append_file(path, chunk)
+
+        def cold_write():
+            for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+                cold[0].mkdirs(d)
+            run_clients(write, paths, clients, "write")
+            t1 = time.perf_counter()
+            cold[0].mkdirs("/many")
+            run_clients(lambda i, n: cold[i].create(f"/many/e{n:05d}"), list(range(creates)),
+                        clients, "create")
+            out["creates_s"] = time.perf_counter() - t1
+
+        step("10a_cold_write", cold_write)
+        fs = cold[0]
+        check(len(fs.readdir("/many")) == creates, "creates: readdir count")
+        for path in paths:
+            st = fs.stat(path)
+            check(st["size"] == sum(len(c) for c in tree[path]) and st["nlink"] == 1,
+                  f"{path}: stat {st}")
+        blobs = fs_blobs(fs, tree, paths)
+        out["blobs"] = len(blobs)
+
+        # 10b: cold read, whole and ranged, and every stored stripe
+        picks = []
+        for _ in range(ranges):
+            path = paths[int(rng.integers(len(paths)))]
+            size = sum(len(c) for c in tree[path])
+            off = int(rng.integers(size))
+            picks.append((path, off, int(rng.integers(1, min(MiB, size - off) + 1))))
+
+        def cold_read():
+            read_tree(lambda i: cold[i], tree, paths, clients)
+            out["read_whole_s"] = time.perf_counter() - t_read
+            for path, off, ln in picks:
+                check(fs.read_file(path, off, ln) == b"".join(tree[path])[off:off + ln],
+                      f"ranged read {path} [{off}, +{ln})")
+
+        t_read = time.perf_counter()
+        step("10b_cold_read", cold_read)
+        t1 = time.perf_counter()
+        check_fs_stripes(c, blobs, "stored", clients)
+        out["stripe_check_s"] = time.perf_counter() - t1
+
+        # 10c: two blobnode disks lose everything; degraded reads, then the
+        # background ticks rebuild every lost shard
+        bs = c.blobstore
+        big = fs_blobs(fs, tree, ["/big/b0"])[0][1]  # an EC(12,4) blob: 16 units
+        units = bs.cm.get_volume(big.vid).units
+        victims = {units[0].disk_id, units[13].disk_id}
+        lost = {}
+        for _, blob, _ in blobs:
+            for idx, u in enumerate(bs.cm.get_volume(blob.vid).units):
+                if u.disk_id in victims:
+                    lost[(blob.vid, blob.bid, idx)] = bs.nodes[u.node_id].get_shard(u.vuid, blob.bid)
+                    bs.nodes[u.node_id].lose_shard(u.vuid, blob.bid)
+        for d in victims:
+            bs.cm.set_disk_status(d, DISK_BROKEN)
+        check(lost, "the broken disks held no shard")
+
+        def degraded_and_rebuild():
+            decoded0 = registry("access").counter("read_bytes", {"kind": "decoded"}).value
+            t1 = time.perf_counter()
+            read_tree(lambda i: cold[i], tree, paths, clients)
+            out["degraded_read_s"] = time.perf_counter() - t1
+            out["degraded_decoded_bytes"] = \
+                registry("access").counter("read_bytes", {"kind": "decoded"}).value - decoded0
+            check(out["degraded_decoded_bytes"] > 0, "degraded reads decoded nothing")
+            t1 = time.perf_counter()
+            pending, ticks = dict(lost), 0
+            while pending and time.perf_counter() - t1 < FS_REPAIR_DEADLINE_S:
+                c.tick_background()
+                ticks += 1
+                for key in list(pending):
+                    vid, bid, idx = key
+                    u = bs.cm.get_volume(vid).units[idx]
+                    if u.disk_id in victims:
+                        continue
+                    try:
+                        got = bs.nodes[u.node_id].get_shard(u.vuid, bid)
+                    except NoSuchShard:
+                        continue
+                    check(got == pending.pop(key), f"rebuilt shard {key} != the one lost")
+            check(not pending, f"{len(pending)} of {len(lost)} lost shards not rebuilt in "
+                               f"{ticks} ticks")
+            out["rebuild_s"] = time.perf_counter() - t1
+            out["rebuild_ticks"] = ticks
+
+        step("10c_degraded_and_rebuild", degraded_and_rebuild)
+        out["rebuilt_shards"] = len(lost)
+        hit = {(vid, bid) for vid, bid, _ in lost}
+        check_fs_stripes(c, [b for b in blobs if (b[1].vid, b[1].bid) in hit], "rebuilt", clients)
+
+        # 10d: the hot volume: replicated datanodes, no kernel
+        hot = c.client("hot")
+        hot_data = {f"/h{i:02d}": rng.bytes(MiB) for i in range(hot_files)}
+        tails = {p: rng.bytes(256 * 1024) for p in sorted(hot_data)[:16]}
+        patch = rng.bytes(64 * 1024)
+
+        def hot_volume():
+            for path, data in hot_data.items():
+                hot.write_file(path, data)
+            for path, tail in tails.items():
+                hot.append_file(path, tail)
+                hot_data[path] += tail
+            # an in-place overwrite rides the partition's raft: pump its clock
+            ino, done = hot.resolve("/h00"), {}
+
+            def overwrite():
+                try:
+                    hot.write_at(ino, 100_000, patch)
+                    done["ok"] = True
+                except Exception as e:  # reported below, fails the phase
+                    done["err"] = f"{type(e).__name__}: {e}"
+
+            th = threading.Thread(target=overwrite)
+            th.start()
+            run_until(c.net, lambda: not th.is_alive(), max_ticks=5000)
+            th.join(timeout=30)
+            check(done.get("ok"), f"hot overwrite: {done.get('err')}")
+            d = hot_data["/h00"]
+            hot_data["/h00"] = d[:100_000] + patch + d[100_000 + len(patch):]
+            for path, data in hot_data.items():
+                check(hot.read_file(path) == data, f"hot read {path}")
+
+        step("10d_hot_volume", hot_volume)
+        check(launches["10d_hot_volume"]["gf_matmul"] == 0,
+              f"the hot volume launched B1: {launches['10d_hot_volume']}")
+
+        # 10e: unlink half the cold files; the freelists drain through the
+        # blobstore's deletes
+        gone = paths[::2]
+        gone_blobs = fs_blobs(fs, tree, gone)
+
+        def purge():
+            for path in gone:
+                fs.unlink(path)
+            t1, ticks = time.perf_counter(), 0
+            out["unlink_s"] = t1 - t_purge
+            while time.perf_counter() - t1 < FS_PURGE_DEADLINE_S:
+                c.tick_background()
+                ticks += 1
+                if not any(sm.freelist for mn in c.metanodes.values()
+                           for sm in mn.partitions.values()):
+                    break
+            check(not any(sm.freelist for mn in c.metanodes.values()
+                          for sm in mn.partitions.values()), f"freelists not drained in {ticks} ticks")
+            out["purge_ticks"] = ticks
+
+        t_purge = time.perf_counter()
+        step("10e_purge", purge)
+        for _, blob, _ in gone_blobs:
+            for u in bs.cm.get_volume(blob.vid).units:
+                try:
+                    bs.nodes[u.node_id].get_shard(u.vuid, blob.bid)
+                except NoSuchShard:
+                    continue
+                check(False, f"purged blob {blob.vid}/{blob.bid} still on node {u.node_id}")
+        out["purged_files"], out["purged_blobs"] = len(gone), len(gone_blobs)
+    finally:
+        c.close()
+
+    # 10f: a new cluster on the same root reads the kept files back
+    kept = paths[1::2]
+    sample = [kept[int(i)] for i in rng.choice(len(kept), min(64, len(kept)), replace=False)]
+
+    def restart():
+        c2 = FsCluster(root, device=device)
+        try:
+            fs2 = c2.client("cold")
+            for path in sample:
+                check(fs2.read_file(path) == b"".join(tree[path]), f"read after restart {path}")
+            check(len(fs2.readdir("/many")) == creates, "creates after restart")
+            hot2 = c2.client("hot")
+            for path in sorted(hot_data)[:8]:
+                check(hot2.read_file(path) == hot_data[path], f"hot read after restart {path}")
+        finally:
+            c2.close()
+
+    step("10f_restart", restart)
+    out["cold_mib"] = cold_bytes / MiB
+    out["cold_write_mib_s"] = cold_bytes / MiB / (steps["10a_cold_write"] - out["creates_s"])
+    out["cold_read_mib_s"] = cold_bytes / MiB / out["read_whole_s"]
+    out["creates_per_s"] = creates / out["creates_s"]
+    return {"steps_s": steps, "launches": launches, **out}
+
+
 def _missing(cluster, unit, bid) -> bool:
     from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
 
@@ -1424,6 +1745,13 @@ def main() -> int:
         soak_steps = phase_soak(os.path.join(tmp, "p9"), zero_counts, read_counts)
         wall["9_soak"] = time.perf_counter() - t0
 
+        # phase 10: the filesystem path, B1 on the cold volume, no kernel on the hot one
+        t0 = time.perf_counter()
+        fs_res = phase_fs(os.path.join(tmp, "p10"), "cuda", zero_counts, read_counts)
+        wall["10_fs"] = time.perf_counter() - t0
+        for name in ("10a_cold_write", "10c_degraded_and_rebuild"):
+            check(fs_res["launches"][name]["gf_matmul"] > 0, f"{name} launched no gf_matmul kernel")
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -1445,6 +1773,12 @@ def main() -> int:
     log("soak " + json.dumps({"seconds": wall["9_soak"], "steps": soak_steps,
                               "device": torch.cuda.get_device_name(0),
                               "nvidia_smi": nvidia_smi_line()}))
+    log("fs " + json.dumps({"seconds": wall["10_fs"], **fs_res,
+                            "b1_launches": {k: v["gf_matmul"] for k, v in fs_res["launches"].items()},
+                            "b2_launches": sum(v["gf_matmul_pipe"] + v["gf_matmul_pipe_static"]
+                                               for v in fs_res["launches"].values()),
+                            "device": torch.cuda.get_device_name(0),
+                            "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))

@@ -1,7 +1,9 @@
-"""Chaos — deterministic fault injection for the blobstore and the codec.
+"""Chaos — deterministic fault injection for the whole stack.
 
-  * `chaos.failpoint(name)` call sites (blobnode shard IO, access hedged
-    gather, rs encode) are armed per name with error / delay /
+  * `chaos.failpoint(name)` call sites (rpc, evloop dispatch, raft drain and
+    transport, datanode ops, extent-store IO and CRC path, meta submit,
+    blobnode shard IO, access hedged gather, rs encode) are armed per name
+    with error / delay /
     hang-until-released / drop / corrupt / return-value actions, globally or
     per node, with hit counters, budgets and probabilities. Zero-overhead
     no-ops while nothing is armed.
@@ -10,8 +12,9 @@
     MiniCluster on a virtual timeline with a reproducible event log;
     `corrupt_shard_on_disk` is its bit-rot injector.
 
-Env-var control: `CFS_FAILPOINTS=rs.encode=delay(0.1)` is parsed on first
-import, so subprocesses inherit faults from the harness environment.
+Env-var control: `CFS_FAILPOINTS=rs.encode=delay(0.1);raft.send=drop@0.1` is
+parsed on first import, so subprocesses inherit faults from the harness
+environment.
 """
 
 from chubaofs_tpu_torch.chaos.failpoints import (  # noqa: F401

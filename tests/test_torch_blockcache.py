@@ -1,8 +1,8 @@
 """The cases of tests/test_blockcache.py, run against the port on the CPU.
 
 Blockcache daemon + client: LRU, restart recency, TinyLFU admission, ghost
-readmission and budgets. The FsClient read-through case waits for the port
-of deploy.py."""
+readmission and budgets, and an FsClient on a cold volume reading through
+the cache."""
 
 import os
 import threading
@@ -108,6 +108,36 @@ def test_concurrent_clients(bcache):
     for t in threads:
         t.join()
     assert not errs
+
+
+def test_fsclient_cold_reads_through_bcache(tmp_path):
+    """reader.go:30,66 integration: miss → backend + fill; hit → no backend."""
+    from chubaofs_tpu_torch.deploy import FsCluster
+
+    cluster = FsCluster(str(tmp_path / "fs"), n_nodes=3, blob_nodes=6,
+                        data_nodes=0, device=CPU)
+    mgr = BcacheManager(str(tmp_path / "bc"), capacity_bytes=64 << 20)
+    svc = BcacheService(str(tmp_path / "bc.sock"), mgr).start()
+    try:
+        cluster.create_volume("cached")
+        fs = cluster.client("cached")
+        fs.bcache = BcacheClient(str(tmp_path / "bc.sock"))
+        payload = os.urandom(300_000)
+        fs.write_file("/f", payload)
+        reads = []
+        orig_read = fs.data.read
+        fs.data.read = lambda *a: (reads.append(1), orig_read(*a))[1]
+        assert fs.read_file("/f") == payload
+        assert reads  # first read hits the backend
+        backend_calls = len(reads)
+        assert fs.read_file("/f") == payload  # now served from cache
+        assert len(reads) == backend_calls
+        # ranged read also cached
+        assert fs.read_file("/f", 1000, 5000) == payload[1000:6000]
+        assert len(reads) == backend_calls
+    finally:
+        svc.stop()
+        cluster.close()
 
 
 # -- frequency admission + two-tier budgets + restart recency ----------------

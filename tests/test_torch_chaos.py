@@ -1,11 +1,11 @@
-"""The cases of tests/test_chaos.py that need only the blobstore plane, run
-against the port on the CPU.
+"""The cases of tests/test_chaos.py, run against the port on the CPU.
 
 Failpoint registry, seeded scheduler, soak acceptance on
-MiniCluster(device="cpu"). Tier-1 runs the registry unit tests plus seeded
-SMOKE soaks (small clusters, sub-second deadlines); the full 3-plan
-acceptance soak is `slow`. Everything here carries the `chaos` marker. The
-raft and FUSE cases wait for the ports of raft/, deploy.py and client/."""
+MiniCluster(device="cpu"), raft group commit and transport under faults, and
+rename-over and meta-submit faults on FsCluster(device="cpu"). Tier-1 runs the
+registry unit tests plus seeded SMOKE soaks (small clusters, sub-second
+deadlines); the full 3-plan acceptance soak is `slow`. Everything here
+carries the `chaos` marker. The FUSE cases wait for the port of client/."""
 
 import os
 import struct
@@ -417,3 +417,241 @@ def test_hedged_gather_replaces_hung_reads(tmp_path):
     finally:
         chaos.reset()
         c.close()
+
+
+# -- raft group commit under faults ---------------------------------------------
+
+
+def _log_sm():
+    from chubaofs_tpu_torch.raft.server import StateMachine
+
+    class LogSM(StateMachine):
+        def __init__(self):
+            self.applied = []
+
+        def apply(self, data, index):
+            self.applied.append((index, data))
+            return data
+
+        def snapshot(self):
+            return b""
+
+        def restore(self, payload):
+            pass
+
+    return LogSM()
+
+
+def test_chaos_crash_restart_between_batched_wal_append_and_apply(tmp_path):
+    """The raft.drain failpoint sits exactly between a drained batch's ONE
+    WAL write+flush and its apply pass. A crash there must lose nothing and
+    double-apply nothing: recovery replays the whole batch exactly once."""
+    from chubaofs_tpu_torch.raft import InProcNet, MultiRaft
+    from chubaofs_tpu_torch.raft.server import run_until
+
+    node = MultiRaft(1, InProcNet(), wal_dir=str(tmp_path / "n1"))
+    sm = _log_sm()
+    node.create_group(1, [1], sm)
+    assert run_until(node.net, lambda: node.is_leader(1))
+    for f in node.propose_batch(1, [("pre", i) for i in range(5)]):
+        f.result(timeout=5)
+    chaos.arm("raft.drain", "error(crash between WAL append and apply)",
+              times=1)
+    died = []
+    orig_hook = threading.excepthook
+    threading.excepthook = lambda args: died.append(args.exc_type.__name__)
+    try:
+        futs = node.propose_batch(1, [("batch", i) for i in range(8)])
+        deadline = time.time() + 5
+        while chaos.fired("raft.drain") == 0 and time.time() < deadline:
+            time.sleep(0.01)
+        assert chaos.fired("raft.drain") == 1, "drain failpoint never hit"
+        time.sleep(0.1)  # let the (dying) pump settle
+        # the injected crash killed the drain pump mid-commit: the batch
+        # persisted but never applied, so its futures still pend
+        assert died == ["FailpointError"]
+        assert not any(f.done() for f in futs)
+    finally:
+        threading.excepthook = orig_hook
+        chaos.reset()
+    # restart: a fresh node over the same WAL replays committed entries
+    sm2 = _log_sm()
+    node2 = MultiRaft(1, InProcNet(), wal_dir=str(tmp_path / "n1"))
+    node2.create_group(1, [1], sm2)
+    datas = [d for _, d in sm2.applied]
+    assert datas == ([("pre", i) for i in range(5)]
+                     + [("batch", i) for i in range(8)]), \
+        "recovery lost or reordered batched entries"
+    idxs = [i for i, _ in sm2.applied]
+    assert len(idxs) == len(set(idxs)), "an entry was double-applied"
+
+
+def test_chaos_link_drop_mid_batch_no_loss_no_dup():
+    """Drop the leader's fan-out frames mid-batch: the pipelined resend path
+    (heartbeat probes + NACK rewind) must deliver every batched entry exactly
+    once, in order, on every replica."""
+    from chubaofs_tpu_torch.raft import InProcNet, MultiRaft
+    from chubaofs_tpu_torch.raft.server import run_until
+
+    net = InProcNet()
+    nodes = {i: MultiRaft(i, net) for i in (1, 2, 3)}
+    sms = {i: _log_sm() for i in nodes}
+    for i, n in nodes.items():
+        n.create_group(1, [1, 2, 3], sms[i])
+    assert run_until(net, lambda: any(n.is_leader(1) for n in nodes.values()))
+    lead_id = next(i for i, n in nodes.items() if n.is_leader(1))
+    # the next 4 per-destination frames out of the leader vanish — the
+    # drained batch's whole AppendEntries fan-out is lost in flight
+    chaos.arm("raft.send", "drop", node=lead_id, times=4)
+    try:
+        futs = nodes[lead_id].propose_batch(1, [("op", i) for i in range(16)])
+        assert run_until(net, lambda: all(f.done() for f in futs),
+                         max_ticks=900), "batch never recovered from drops"
+        assert chaos.fired("raft.send") >= 1, "drop never bit the fan-out"
+    finally:
+        chaos.reset()
+    for f in futs:
+        assert f.exception() is None
+    assert run_until(
+        net, lambda: all(len(s.applied) >= 16 for s in sms.values()),
+        max_ticks=600)
+    want = [("op", i) for i in range(16)]
+    for s in sms.values():
+        assert [d for _, d in s.applied] == want, "lost/reordered after drops"
+        idxs = [i for i, _ in s.applied]
+        assert len(idxs) == len(set(idxs)), "double apply after resend"
+
+
+# -- raft transport link faults ------------------------------------------------
+
+
+def test_raft_send_drop_failpoint():
+    """raft.send armed with drop severs a TcpNet link; disarm restores it."""
+    from chubaofs_tpu_torch.raft.core import Msg
+    from chubaofs_tpu_torch.raft.transport import TcpNet
+
+    class Sink:
+        def __init__(self):
+            self.got = []
+
+        def deliver(self, msgs):
+            self.got.extend(msgs)
+
+    n1 = TcpNet(1, {1: "127.0.0.1:0", 2: "127.0.0.1:0"})
+    # node 2 binds its own port; node 1 learns it via set_peer
+    n2 = TcpNet(2, {2: "127.0.0.1:0"})
+    try:
+        n1.set_peer(2, n2.listen_addr)
+        sink = Sink()
+        n2.register(sink)
+
+        def ping():
+            n1.send([Msg(type="hb", group=1, src=1, dst=2, term=1)])
+
+        ping()
+        deadline = time.time() + 5
+        while not sink.got and time.time() < deadline:
+            time.sleep(0.02)
+        assert sink.got, "baseline delivery failed"
+        sink.got.clear()
+        chaos.arm("raft.send", "drop", node=1)
+        ping()
+        time.sleep(0.3)
+        assert not sink.got, "armed drop did not sever the link"
+        assert chaos.fired("raft.send") == 1
+        chaos.disarm("raft.send", node=1)
+        ping()
+        deadline = time.time() + 5
+        while not sink.got and time.time() < deadline:
+            time.sleep(0.02)
+        assert sink.got, "link did not recover after disarm"
+    finally:
+        chaos.reset()
+        n1.close()
+        n2.close()
+
+
+# -- rename-over (POSIX replace semantics) -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fscluster(tmp_path_factory):
+    from chubaofs_tpu_torch.deploy import FsCluster
+
+    root = tmp_path_factory.mktemp("chaosfs")
+    cluster = FsCluster(str(root), n_nodes=3, blob_nodes=0, data_nodes=3,
+                        device=CPU)
+    cluster.create_volume("chaosvol", cold=False)
+    yield cluster
+    cluster.close()
+
+
+def test_rename_over_replaces_file(fscluster):
+    fs = fscluster.client("chaosvol")
+    fs.write_file("/ro_src.txt", b"the mover")
+    fs.write_file("/ro_dst.txt", b"the displaced")
+    fs.rename("/ro_src.txt", "/ro_dst.txt")  # must NOT raise EEXIST
+    assert fs.read_file("/ro_dst.txt") == b"the mover"
+    with pytest.raises(Exception):
+        fs.stat("/ro_src.txt")
+
+
+def test_rename_over_same_inode_is_noop(fscluster):
+    fs = fscluster.client("chaosvol")
+    fs.write_file("/ro_a", b"linked")
+    fs.link("/ro_a", "/ro_b")
+    fs.rename("/ro_a", "/ro_b")  # hard links to one inode: POSIX no-op
+    assert fs.read_file("/ro_a") == b"linked"
+    assert fs.read_file("/ro_b") == b"linked"
+    assert fs.stat("/ro_a")["nlink"] == 2
+
+
+def test_rename_over_dir_semantics(fscluster):
+    from chubaofs_tpu_torch.sdk.fs import FsError
+
+    fs = fscluster.client("chaosvol")
+    fs.mkdir("/ro_d1")
+    fs.mkdir("/ro_d2")
+    fs.rename("/ro_d1", "/ro_d2")  # empty dir over empty dir: allowed
+    assert fs.stat("/ro_d2")["is_dir"]
+    fs.mkdir("/ro_d3")
+    fs.write_file("/ro_d3/child", b"x")
+    fs.mkdir("/ro_d4")
+    with pytest.raises(FsError) as ei:
+        fs.rename("/ro_d4", "/ro_d3")  # dir over NON-EMPTY dir
+    assert ei.value.code in ("ENOTEMPTY", "EEXIST")
+    fs.write_file("/ro_f", b"plain")
+    with pytest.raises(FsError) as ei:
+        fs.rename("/ro_f", "/ro_d4")  # file over dir
+    assert ei.value.code == "EISDIR"
+    with pytest.raises(FsError) as ei:
+        fs.rename("/ro_d4", "/ro_f")  # dir over file
+    assert ei.value.code == "ENOTDIR"
+
+
+def test_rename_over_displaced_inode_is_released(fscluster):
+    """The displaced inode must leave the namespace accounting (nlink 0 ->
+    evicted into the orphan/freelist plane), not linger as a leak."""
+    fs = fscluster.client("chaosvol")
+    fs.write_file("/ro_keep", b"keeper")
+    fs.write_file("/ro_gone", b"goner")
+    gone_ino = fs.stat("/ro_gone")["ino"]
+    fs.rename("/ro_keep", "/ro_gone")
+    from chubaofs_tpu_torch.meta.metanode import OpError
+
+    with pytest.raises(OpError):
+        fs.meta.get_inode(gone_ino)
+
+
+
+def test_meta_submit_failpoint_surfaces_as_fs_error(fscluster):
+    """An injected meta fault takes the real error path to the client."""
+    fs = fscluster.client("chaosvol")
+    chaos.arm("meta.submit", "error(meta wedged)")
+    try:
+        with pytest.raises(Exception):
+            fs.write_file("/fp_meta.txt", b"x")
+    finally:
+        chaos.reset()
+    fs.write_file("/fp_meta.txt", b"x")  # disarmed: path works again
+    assert fs.read_file("/fp_meta.txt") == b"x"

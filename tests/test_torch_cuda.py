@@ -302,3 +302,39 @@ def test_kill_blobnode_soak_on_card(dev, tmp_path, monkeypatch):
     assert res["alerts_fired"] == ["broken_disks"]
     assert cuda_gf.LAUNCHES > b1
     assert cuda_gf_pipe.LAUNCHES == b2
+
+
+def test_fs_cluster_cold_volume_on_card(dev, tmp_path, monkeypatch):
+    """The filesystem client on a cold volume with the codec on the card:
+    writes and reads launch B1 and return the bytes; a hot volume launches
+    no kernel; FsCluster with no device takes the card."""
+    from chubaofs_tpu_torch.deploy import FsCluster
+
+    monkeypatch.delenv("CFS_GF_PIPELINED", raising=False)
+    c = FsCluster(str(tmp_path / "fs"))
+    try:
+        assert c.blobstore.codec.device.type == "cuda"
+        c.create_volume("cold")
+        c.create_volume("hot", cold=False)
+        fs, hot = c.client("cold"), c.client("hot")
+        rng = np.random.default_rng(8)
+        files = {f"/d/f{i}": rng.bytes(int(rng.integers(4096, 3_000_000))) for i in range(6)}
+        b1, b2 = cuda_gf.LAUNCHES, dict(cuda_gf_pipe.LAUNCHES)
+        fs.mkdirs("/d")
+        for path, data in files.items():
+            fs.write_file(path, data)
+        fs.append_file("/d/f0", b"tail")
+        torch.cuda.synchronize()
+        assert cuda_gf.LAUNCHES > b1
+        for path, data in files.items():
+            want = data + (b"tail" if path == "/d/f0" else b"")
+            assert fs.read_file(path) == want
+            assert fs.read_file(path, 1000, 2000) == want[1000:3000]
+        b1 = cuda_gf.LAUNCHES
+        hot.write_file("/h", files["/d/f1"])
+        assert hot.read_file("/h") == files["/d/f1"]
+        torch.cuda.synchronize()
+        assert cuda_gf.LAUNCHES == b1
+        assert cuda_gf_pipe.LAUNCHES == b2
+    finally:
+        c.close()

@@ -3,8 +3,9 @@ run against the port on the CPU.
 
 Exposition-format conformance, cfs-stat diff, bounded track logs and
 carriers, slow-op log, and cross-hop traces over a MiniCluster(device=
-"cpu") and a real RPCServer. The FsCluster, FUSE, raft and console cases
-wait for the ports of deploy.py, client/, raft/ and console/."""
+"cpu") and a real RPCServer, and an empty raft batch under a span. The
+FUSE, metanode-wire and console cases wait for the ports of client/,
+meta/service.py and console/."""
 
 import json
 import os
@@ -294,3 +295,30 @@ def test_span_id_carrier_roundtrip_lowercased():
     assert cont.trace_id == span.trace_id
     assert trace.extract_span_id(lowered) == span.span_id
     assert trace.extract_span_id({}) is None
+
+
+def test_empty_propose_batch_under_span(tmp_path):
+    """An empty batch (e.g. authnode create_keys entries=[]) must return []
+    even when the caller has an active span — the raft track callback has
+    no future to hang off (regression: futs[-1] IndexError)."""
+    from chubaofs_tpu_torch.raft import InProcNet, MultiRaft, StateMachine
+    from chubaofs_tpu_torch.raft.server import run_until
+
+    class _SM(StateMachine):
+        def apply(self, data, index):
+            return index
+
+        def snapshot(self):
+            return b""
+
+        def restore(self, data):
+            pass
+
+    net = InProcNet()
+    nodes = {i: MultiRaft(i, net) for i in (1, 2, 3)}
+    for n in nodes.values():
+        n.create_group(1, [1, 2, 3], _SM())
+    assert run_until(net, lambda: any(n.is_leader(1) for n in nodes.values()))
+    lead = next(n for n in nodes.values() if n.is_leader(1))
+    with trace.Span("caller"):
+        assert lead.propose_batch(1, []) == []
