@@ -105,17 +105,48 @@ result line:
             and (c); healthy reads of a systematic code and purges code
             nothing, so (b), (e) and (f) report what they launched.
 
+  11. the cluster as daemons, B1 only: the port's ProcCluster with no
+            device, 3 masters, 3 metanodes, 3 datanodes, the blobstore daemon
+            (9 blobnodes x 2 disks: a blob over 1 MiB is EC(12,4)) and the
+            objectnode, each an OS process (`python -m chubaofs_tpu_torch.cmd`).
+            The blobstore daemon codes on cuda:0; every other role is host
+            work. (a) boot until a master leader answers, 6 nodes have
+            registered and the gateway and objectnode listen; only the
+            blobstore daemon may hold a CUDA context (nvidia-smi
+            --query-compute-apps, read here and after (d)); (b) cold write: 4
+            threads, each with its own RemoteCluster client, 512 files of
+            4 KiB-256 KiB and 4 files of four 4 MiB appends; (c) every file
+            read back whole and 256 seeded ranges; (d) S3: a user made by
+            `python -m chubaofs_tpu_torch.cli`, a bucket, 64 objects of
+            1 KiB-1 MiB and a multipart upload of 4 x 8 MiB parts through the
+            objectnode with SigV4, everything GET and Range GET back; (e) a hot
+            volume, 32 files of 64 KiB-1 MiB through the datanodes' chain
+            replication; (f) SIGKILL the master leader and a metanode, respawn
+            the metanode from its config: a new leader within 30 s, 100
+            creates, the big files and 64 small ones read back; (g) unlink
+            half the files of (b): within 60 s the metanodes' freelist drains
+            delete every blob they held (a GET of it is refused); (h) close:
+            every daemon exits 0 after SIGTERM within 30 s, none is left, and
+            no daemon built a kernel. The launch counters live in the
+            blobstore daemon, so device work is read from its /metrics
+            (cfs_codec_batches_total) before and after each step: it must
+            grow in (b) and (d) and stay put in (c) and (e).
+
 Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c, each step
 of 10) is driven with every launch count set to 0 just before it and read
-just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
+just after; each step of 11 reads the blobstore daemon's codec batches just
+before and just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
 JSON line (phase 8's steps, B1 launches, the card's name and power limit), a
 `soak` JSON line (phase 9's steps: wall seconds, rebuild seconds, shards and
 shards/s, bytes per repaired shard, download/decode overlap, the top three
 stages of the cfs-trace critical path, the rebuild's split over download,
 decode and write-back, B1 launches), an `fs` JSON line (phase 10's steps:
 wall seconds, cold write and read MiB/s, creates/s, B1 launches per step, B2
-launches, shards rebuilt, the card's name and power limit), a `kernels` JSON
-line, the card's name and power limit as nvidia-smi reports them, and the
+launches, shards rebuilt, the card's name and power limit), a `procs` JSON
+line (phase 11's steps: wall seconds, cold write and read MiB/s, S3 PUT and
+GET ops/s and MiB/s, creates/s after the failover and its seconds, codec
+batches per step, the pids that held CUDA contexts and their memory, the
+card's name and power limit), a `kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
 one-line result JSON.
 """
 
@@ -1554,6 +1585,410 @@ def phase_fs(root: str, device, zero_counts, read_counts, dirs: int = 16, files:
     return {"steps_s": steps, "launches": launches, **out}
 
 
+# -- phase 11: the cluster as daemons -------------------------------------------
+
+PROCS_FAILOVER_DEADLINE_S = 30  # 11f: a new master leader answers
+PROCS_PURGE_DEADLINE_S = 60  # 11g: the metanodes' freelist drains reach the blobstore
+PROCS_STOP_DEADLINE_S = 30  # 11h: every daemon exits 0 after SIGTERM
+
+
+def compute_apps() -> list[str]:
+    """`pid, used_memory` of every process that holds a CUDA context, as
+    `nvidia-smi --query-compute-apps` reports them. In a container the pids
+    are the host's (or 1), not this namespace's: device_files() attributes
+    contexts to processes."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [row.strip() for row in proc.stdout.strip().splitlines()]
+
+
+def device_files(pid: int) -> list[str]:
+    """The NVIDIA device nodes that process `pid` holds open. A CUDA context
+    holds its card's node, /dev/nvidia<N>; a process that never opened the
+    card holds none."""
+    out = []
+    try:
+        fds = list(Path(f"/proc/{pid}/fd").iterdir())
+    except OSError:  # exited
+        return []
+    for fd in fds:
+        try:
+            target = os.readlink(fd)
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def check_contexts(readings: list[dict]) -> None:
+    """Only the blobstore daemon holds a CUDA context: it holds a card's
+    device node in some reading, and no other daemon holds any NVIDIA
+    device node in any."""
+    card = re.compile(r"^/dev/nvidia\d+$")
+    check(any(card.match(f) for r in readings for f in r.get("blobstore", [])),
+          f"the blobstore daemon holds no card: {readings}")
+    others = {n: f for r in readings for n, f in r.items() if n != "blobstore" and f}
+    check(not others, f"host roles hold NVIDIA devices: {others}")
+
+
+def s3_request(addr: str, ak: str, sk: str, method: str, path: str, body: bytes = b"",
+               headers: dict | None = None, raw_query: str = ""):
+    """One SigV4-signed S3 request (the port's objectnode/auth.py signs);
+    returns (status, headers, body)."""
+    import http.client
+
+    from chubaofs_tpu_torch.objectnode.auth import sign_v4
+
+    hdrs = sign_v4(method, path, raw_query, {"host": addr, **(headers or {})}, ak, sk,
+                   payload=body)
+    conn = http.client.HTTPConnection(addr, timeout=120)
+    try:
+        conn.request(method, path + (f"?{raw_query}" if raw_query else ""),
+                     body=body or None, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def cluster_pids(root: str) -> list[int]:
+    """Every live process whose command line names a config under `root`."""
+    pids = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            cmd = (d / "cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if any(a.startswith(root.encode()) for a in cmd):
+            pids.append(int(d.name))
+    return pids
+
+
+def on_every_master(c, fn, what: str, timeout: float = 30.0) -> None:
+    """fn(MasterClient of one master) on each master until it returns. The
+    masters serve /admin/getVol and /user/akInfo from their own replica, so a
+    volume or user just created may not be on a follower yet; a client that
+    meets such a follower fails (the objectnode would cache the miss)."""
+    from chubaofs_tpu_torch.master.api_service import MasterClient
+
+    for i, addr in enumerate(c.master_addrs, start=1):
+        if f"master{i}" in c.procs:  # a killed master answers nothing
+            retry(lambda: fn(MasterClient([addr], retries=1)), f"{what} on {addr}", timeout)
+
+
+def retry(fn, what: str, timeout: float = 30.0):
+    """fn() until it returns, for ops that race a raft election."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return fn()
+        except Exception as e:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: {type(e).__name__}: {e}") from e
+            time.sleep(0.3)
+
+
+def phase_procs(root: str, device=None, files: int = 512, bigs: int = 4, ranges: int = 256,
+                objects: int = 64, parts: int = 4, hot_files: int = 32,
+                clients: int = 4) -> dict:
+    """Phase 11: the port's ProcCluster, 3 masters, 3 metanodes, 3 datanodes,
+    the blobstore daemon and the objectnode as OS processes, with no device
+    (None: the blobstore daemon codes on the CUDA device; every other role
+    is host work). Device work is read from the blobstore daemon's /metrics
+    (cfs_codec_batches_total) before and after each step, since the launch
+    counters live in that process. Returns the `procs` line's fields."""
+    import signal
+
+    from chubaofs_tpu_torch.blobstore.gateway import AccessClient
+    from chubaofs_tpu_torch.master.api_service import MasterClient
+    from chubaofs_tpu_torch.sdk.cluster import RemoteCluster
+    from chubaofs_tpu_torch.testing.harness import ProcCluster
+
+    class Cluster(ProcCluster):
+        def blobstore_cfg(self):
+            # 9 blobnodes x 2 disks: a blob over 1 MiB is EC(12,4), 16 units
+            # on 16 disks, which the harness's 6 x 2 cannot place
+            return {**super().blobstore_cfg(), "nodes": 9}
+
+    steps, batches, out = {}, {}, {}
+    rng = np.random.default_rng(11)
+    tree = {f"/d{i % 16:02d}/f{i:03d}": [rng.bytes(int(rng.integers(4 * 1024, 256 * 1024 + 1)))]
+            for i in range(files)}
+    for b in range(bigs):
+        tree[f"/big/b{b}"] = [rng.bytes(4 * MiB) for _ in range(4)]
+    paths = sorted(tree)
+    cold_bytes = sum(len(c) for chunks in tree.values() for c in chunks)
+    libs = kernel_libraries()
+
+    t0 = time.perf_counter()
+    c = Cluster(root, masters=3, metanodes=3, datanodes=3, blobstore=True, objectnode=True,
+                device=device)
+    steps["11a_boot"] = time.perf_counter() - t0
+    pids = {n: p.pid for n, p in c.procs.items()}
+    out["pids"] = pids
+    contexts = [{n: device_files(p) for n, p in pids.items()}]
+    smi_apps = [compute_apps()]
+
+    def codec_batches() -> float:
+        return scrape(c.access_addr).get("cfs_codec_batches_total", 0.0)
+
+    def step(name, fn):
+        b0 = codec_batches()
+        t1 = time.perf_counter()
+        res = fn()
+        steps[name] = time.perf_counter() - t1
+        batches[name] = codec_batches() - b0
+        return res
+
+    try:
+        mc = MasterClient(c.master_addrs)
+        remote = [RemoteCluster(c.master_addrs, access_addrs=[c.access_addr])
+                  for _ in range(clients)]
+        mc.create_volume("cold", cold=True)
+        on_every_master(c, lambda m: m.get_volume("cold"), "volume cold")
+        cold = [r.client("cold") for r in remote]
+        fs = cold[0]
+        retry(lambda: fs.mkdirs("/big"), "mkdirs on the new cold volume")
+
+        # 11b: cold write, one client per thread
+        def write(i, path):
+            cold[i].create(path)
+            for chunk in tree[path]:
+                cold[i].append_file(path, chunk)
+
+        def cold_write():
+            for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+                fs.mkdirs(d)
+            run_clients(write, paths, clients, "write")
+
+        step("11b_cold_write", cold_write)
+        check(batches["11b_cold_write"] > 0, "11b: cold writes coded no batch on the card")
+
+        # 11c: cold read, whole and ranged
+        picks = []
+        for _ in range(ranges):
+            path = paths[int(rng.integers(len(paths)))]
+            size = sum(len(c) for c in tree[path])
+            off = int(rng.integers(size))
+            picks.append((path, off, int(rng.integers(1, min(MiB, size - off) + 1))))
+
+        def cold_read():
+            read_tree(lambda i: cold[i], tree, paths, clients)
+            out["read_whole_s"] = time.perf_counter() - t_read
+            for path, off, ln in picks:
+                check(fs.read_file(path, off, ln) == b"".join(tree[path])[off:off + ln],
+                      f"ranged read {path} [{off}, +{ln})")
+
+        t_read = time.perf_counter()
+        step("11c_cold_read", cold_read)
+        check(batches["11c_cold_read"] == 0,
+              f"11c: healthy reads coded {batches['11c_cold_read']} batches")
+
+        # 11d: S3 through the objectnode daemon, a user made by the CLI
+        t_s3 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p))
+        cli = subprocess.run(
+            [sys.executable, "-m", "chubaofs_tpu_torch.cli",
+             *[a for addr in c.master_addrs for a in ("--addr", addr)],
+             "--json", "user", "create", "s3user"],
+            cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=120)
+        check(cli.returncode == 0, f"cli user create: {cli.returncode} {cli.stderr[-2000:]}")
+        user = json.loads(cli.stdout)
+        ak, sk = user["access_key"], user["secret_key"]
+        on_every_master(c, lambda m: m.user_by_ak(ak), "user s3user")
+        out["s3_user_s"] = time.perf_counter() - t_s3
+        s3 = c.s3_addr
+        objs = {f"obj/{i:03d}": rng.bytes(int(rng.integers(1024, MiB + 1)))
+                for i in range(objects)}
+        part_data = [rng.bytes(8 * MiB) for _ in range(parts)]
+        obj_ranges = {}
+        for key, data in objs.items():
+            a = int(rng.integers(len(data)))
+            obj_ranges[key] = (a, int(rng.integers(a, len(data))))
+
+        def s3_put():
+            t1 = time.perf_counter()
+            status, _, body = s3_request(s3, ak, sk, "PUT", "/bkt")
+            check(status == 200, f"S3 create bucket: {status} {body[:300]}")
+            on_every_master(c, lambda m: m.get_volume("bkt"), "bucket bkt")
+            out["s3_bucket_s"] = time.perf_counter() - t1
+
+            def put(i, key):
+                status, _, body = s3_request(s3, ak, sk, "PUT", f"/bkt/{key}", objs[key])
+                check(status == 200, f"S3 PUT {key}: {status} {body[:200]}")
+
+            t1 = time.perf_counter()
+            run_clients(put, sorted(objs), clients, "S3 PUT")
+            out["s3_put_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            status, _, body = s3_request(s3, ak, sk, "POST", "/bkt/multi", raw_query="uploads=")
+            check(status == 200, f"S3 initiate multipart: {status}")
+            upload = re.search(rb"<UploadId>([^<]+)</UploadId>", body).group(1).decode()
+            etags = []
+            for n, part in enumerate(part_data, start=1):
+                status, hdrs, _ = s3_request(s3, ak, sk, "PUT", "/bkt/multi", part,
+                                             raw_query=f"partNumber={n}&uploadId={upload}")
+                check(status == 200, f"S3 upload part {n}: {status}")
+                etags.append(hdrs["ETag"].strip('"'))
+            xml = ("<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+                for n, e in enumerate(etags, start=1)) + "</CompleteMultipartUpload>")
+            status, _, body = s3_request(s3, ak, sk, "POST", "/bkt/multi", xml.encode(),
+                                         raw_query=f"uploadId={upload}")
+            check(status == 200 and f"-{parts}".encode() in body,
+                  f"S3 complete multipart: {status} {body[:200]}")
+            out["s3_multipart_s"] = time.perf_counter() - t1
+
+            def get(i, key):
+                status, _, body = s3_request(s3, ak, sk, "GET", f"/bkt/{key}")
+                check(status == 200 and body == objs[key], f"S3 GET {key}: {status}")
+                a, b = obj_ranges[key]
+                status, hdrs, body = s3_request(s3, ak, sk, "GET", f"/bkt/{key}",
+                                                headers={"range": f"bytes={a}-{b}"})
+                check(status == 206 and body == objs[key][a:b + 1]
+                      and hdrs.get("Content-Range") == f"bytes {a}-{b}/{len(objs[key])}",
+                      f"S3 Range GET {key}: {status}")
+
+            t1 = time.perf_counter()
+            run_clients(get, sorted(objs), clients, "S3 GET")
+            out["s3_get_s"] = time.perf_counter() - t1
+            whole = b"".join(part_data)
+            status, _, body = s3_request(s3, ak, sk, "GET", "/bkt/multi")
+            check(status == 200 and body == whole, f"S3 GET multipart: {status}")
+            a = int(rng.integers(len(whole) - MiB))
+            status, _, body = s3_request(s3, ak, sk, "GET", "/bkt/multi",
+                                         headers={"range": f"bytes={a}-{a + MiB - 1}"})
+            check(status == 206 and body == whole[a:a + MiB], f"S3 Range GET multipart: {status}")
+
+        step("11d_s3", s3_put)
+        check(batches["11d_s3"] > 0, "11d: S3 PUTs coded no batch on the card")
+        contexts.append({n: device_files(p) for n, p in pids.items()})
+        smi_apps.append(compute_apps())
+
+        # 11e: a hot volume through the datanodes' chain replication
+        mc.create_volume("hot", cold=False)
+        on_every_master(c, lambda m: m.get_volume("hot"), "volume hot")
+        hot = remote[0].client("hot")
+        hot_data = {f"/h{i:02d}": rng.bytes(int(rng.integers(64 * 1024, MiB + 1)))
+                    for i in range(hot_files)}
+
+        def hot_volume():
+            first = next(iter(hot_data))
+            retry(lambda: hot.write_file(first, hot_data[first]), "first hot write")
+            for path, data in hot_data.items():
+                hot.write_file(path, data)
+            for path, data in hot_data.items():
+                check(hot.read_file(path) == data, f"hot read {path}")
+
+        step("11e_hot_volume", hot_volume)
+        check(batches["11e_hot_volume"] == 0,
+              f"11e: the hot volume coded {batches['11e_hot_volume']} batches")
+
+        # 11f: SIGKILL the master leader and a metanode; respawn the metanode
+        # from its own config (same walDir)
+        leader = mc.get_cluster()["leader_id"]
+        victim = "metanode5"
+        with open(os.path.join(c.root, f"{victim}.json")) as f:
+            victim_cfg = json.load(f)
+
+        def failover():
+            t1 = time.perf_counter()
+            c.kill(f"master{leader}")
+            c.kill(victim)
+            pids[f"{victim}_respawned"] = c.spawn(victim, victim_cfg).pid
+            fresh = MasterClient(c.master_addrs)
+
+            def new_leader():
+                lid = fresh.get_cluster()["leader_id"]
+                check(lid is not None and lid != leader, f"leader {lid}")
+                return lid
+
+            out["new_leader"] = retry(new_leader, "new master leader",
+                                      timeout=PROCS_FAILOVER_DEADLINE_S)
+            out["failover_s"] = time.perf_counter() - t1
+            after = RemoteCluster(c.master_addrs, access_addrs=[c.access_addr]).client("cold")
+            retry(lambda: after.mkdirs("/after"), "mkdirs after the failover")
+            t1 = time.perf_counter()
+            for n in range(100):
+                after.create(f"/after/e{n:03d}")
+            out["creates_after_failover_s"] = time.perf_counter() - t1
+            check(len(after.readdir("/after")) == 100, "creates after the failover: readdir")
+            sample = [p for p in paths if p.startswith("/big/")] + [
+                paths[int(i)] for i in rng.choice(files, min(64, files), replace=False)]
+            for path in sample:
+                check(after.read_file(path) == b"".join(tree[path]),
+                      f"read after the failover {path}")
+
+        step("11f_failover", failover)
+
+        # 11g: unlink half the cold files; the metanodes' freelist drains
+        # delete their blobs on the blobstore daemon
+        gone = paths[::2]
+        locs = [ext["loc"] for path in gone
+                for ext in fs.meta.get_inode(fs.resolve(path)).obj_extents]
+        access = AccessClient([c.access_addr])
+
+        def refused(loc) -> bool:
+            try:
+                access.get(loc)
+            except Exception:
+                return True
+            return False
+
+        def purge():
+            for path in gone:
+                fs.unlink(path)
+            t1 = time.perf_counter()
+            pending = list(locs)
+            while pending and time.perf_counter() - t1 < PROCS_PURGE_DEADLINE_S:
+                pending = [loc for loc in pending if not refused(loc)]
+                if pending:
+                    time.sleep(1.0)
+            check(not pending, f"{len(pending)} of {len(locs)} purged blobs still served "
+                               f"after {PROCS_PURGE_DEADLINE_S} s")
+            out["purge_wait_s"] = time.perf_counter() - t1
+
+        step("11g_purge", purge)
+        out["purged_files"], out["purged_blobs"] = len(gone), len(locs)
+        contexts.append({n: device_files(p.pid) for n, p in c.procs.items()})
+        smi_apps.append(compute_apps())
+        for path in paths[1::2][:16]:
+            check(fs.read_file(path) == b"".join(tree[path]), f"kept file {path}")
+    finally:
+        # 11h: every daemon exits 0 after SIGTERM, and none is left
+        t0 = time.perf_counter()
+        live = dict(c.procs)
+        c.close()
+        steps["11h_stop"] = time.perf_counter() - t0
+    codes = {n: p.poll() for n, p in live.items()}
+    check(all(rc == 0 for rc in codes.values()), f"daemon exit codes after SIGTERM: {codes}")
+    check(steps["11h_stop"] < PROCS_STOP_DEADLINE_S, f"stop took {steps['11h_stop']:.1f} s")
+    left = cluster_pids(root)
+    check(not left, f"cluster processes left after close: {left}")
+    check(kernel_libraries() == libs, "a daemon rebuilt a kernel")
+    check_contexts(contexts)
+
+    s3_bytes = sum(len(d) for d in objs.values())
+    range_bytes = sum(b - a + 1 for a, b in obj_ranges.values())
+    out["device_files"] = contexts
+    out["compute_apps"] = smi_apps
+    out["cold_mib"] = cold_bytes / MiB
+    out["cold_write_mib_s"] = cold_bytes / MiB / steps["11b_cold_write"]
+    out["cold_read_mib_s"] = cold_bytes / MiB / out["read_whole_s"]
+    out["s3_put_ops_s"] = objects / out["s3_put_s"]
+    out["s3_put_mib_s"] = s3_bytes / MiB / out["s3_put_s"]
+    out["s3_get_ops_s"] = 2 * objects / out["s3_get_s"]  # a whole GET + a Range GET each
+    out["s3_get_mib_s"] = (s3_bytes + range_bytes) / MiB / out["s3_get_s"]
+    out["s3_multipart_mib_s"] = parts * 8 / out["s3_multipart_s"]
+    out["creates_per_s_after_failover"] = 100 / out["creates_after_failover_s"]
+    return {"steps_s": steps, "codec_batches": batches, **out}
+
+
 def _missing(cluster, unit, bid) -> bool:
     from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
 
@@ -1752,6 +2187,11 @@ def main() -> int:
         for name in ("10a_cold_write", "10c_degraded_and_rebuild"):
             check(fs_res["launches"][name]["gf_matmul"] > 0, f"{name} launched no gf_matmul kernel")
 
+        # phase 11: the cluster as daemons, B1 in the blobstore daemon's process
+        t0 = time.perf_counter()
+        procs_res = phase_procs(os.path.join(tmp, "p11"))
+        wall["11_procs"] = time.perf_counter() - t0
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -1779,6 +2219,9 @@ def main() -> int:
                                                for v in fs_res["launches"].values()),
                             "device": torch.cuda.get_device_name(0),
                             "nvidia_smi": nvidia_smi_line()}))
+    log("procs " + json.dumps({"seconds": wall["11_procs"], **procs_res,
+                               "device": torch.cuda.get_device_name(0),
+                               "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))

@@ -338,3 +338,47 @@ def test_fs_cluster_cold_volume_on_card(dev, tmp_path, monkeypatch):
         assert cuda_gf_pipe.LAUNCHES == b2
     finally:
         c.close()
+
+
+def test_proc_cluster_cold_volume_on_card(dev, tmp_path, monkeypatch):
+    """The cluster as daemons with the codec on the card: a ProcCluster
+    with no device runs its blobstore daemon on the CUDA device, and cold
+    writes through the SDK over the wire grow that daemon's codec batches;
+    reads of healthy stripes return the bytes."""
+    import time
+
+    from chubaofs_tpu_torch.testing.harness import ProcCluster
+    from chubaofs_tpu_torch.tools.cfsstat import parse_metrics, scrape
+
+    monkeypatch.delenv("CFS_GF_PIPELINED", raising=False)
+    c = ProcCluster(str(tmp_path / "procs"), masters=1, metanodes=3,
+                    datanodes=0, blobstore=True)
+    try:
+        def batches():
+            return parse_metrics(scrape(c.access_addr)).get(
+                "cfs_codec_batches_total", 0)
+
+        c.client_master().create_volume("cold", cold=True)
+        fs = c.fs("cold")
+        rng = np.random.default_rng(9)
+        # at most 1 MiB each: the harness's 12 disks take up to EC(6,3)
+        files = {f"/f{i}": rng.bytes(int(rng.integers(4096, 1 << 20)))
+                 for i in range(8)}
+        before = batches()
+        deadline = time.monotonic() + 30
+        while True:  # the volume's meta partition elects a leader first
+            try:
+                fs.mkdirs("/d")
+                break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.3)
+        for path, data in files.items():
+            fs.write_file(path, data)
+        assert batches() > before
+        for path, data in files.items():
+            assert fs.read_file(path) == data
+            assert fs.read_file(path, 100, 1000) == data[100:1100]
+    finally:
+        c.close()

@@ -188,5 +188,8 @@ def test_daemon_process_without_gpu_exits_without_boot_line(tmp_path):
 
 
 def test_unknown_role_names_the_valid_roles(tmp_path):
-    with pytest.raises(SystemExit, match=r"unknown role 'master'.*\['blobstore'\]"):
-        start_role({"role": "master", "root": str(tmp_path)})
+    # the console role is still unported; the six roles of the cluster are
+    with pytest.raises(SystemExit, match=(
+            r"unknown role 'console'; valid: \['authnode', 'blobstore', "
+            r"'datanode', 'master', 'metanode', 'objectnode'\]")):
+        start_role({"role": "console", "root": str(tmp_path)})

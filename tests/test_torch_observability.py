@@ -3,9 +3,10 @@ run against the port on the CPU.
 
 Exposition-format conformance, cfs-stat diff, bounded track logs and
 carriers, slow-op log, and cross-hop traces over a MiniCluster(device=
-"cpu") and a real RPCServer, and an empty raft batch under a span. The
-FUSE, metanode-wire and console cases wait for the ports of client/,
-meta/service.py and console/."""
+"cpu") and a real RPCServer, the metanode's packet-TCP hop
+(meta/service.py) over an FsCluster(device="cpu"), and an empty raft batch
+under a span. The FUSE and console cases wait for the ports of client/ and
+console/."""
 
 import json
 import os
@@ -217,6 +218,41 @@ def test_role_registries_nonempty_after_traffic(blob_cluster):
     assert vals["cfs_codec_batches_total"] >= 1
     assert vals["cfs_codec_jobs_total"] >= 1
     assert any(k.startswith("cfs_codec_batch_jobs_bucket{") for k in vals)
+
+
+@pytest.fixture(scope="module")
+def fs_cluster(tmp_path_factory):
+    from chubaofs_tpu_torch.deploy import FsCluster
+
+    c = FsCluster(str(tmp_path_factory.mktemp("obsfs")), n_nodes=3,
+                  blob_nodes=6, data_nodes=4, device=CPU)
+    c.create_volume("obs", cold=False)
+    yield c
+    c.close()
+
+
+def test_metanode_wire_trace_and_metrics(fs_cluster):
+    """The packet TCP hop: trace id rides the arg blob out, the track log
+    rides the reply back, and the metanode role registry counts the op."""
+    from chubaofs_tpu_torch.meta.service import MetaService, RemoteMetaNode
+
+    # pick a node LEADING a partition that owns the root inode (read ops are
+    # leader-local; a follower would answer not-leader)
+    mn, pid = next(
+        (m, p) for m in fs_cluster.metanodes.values()
+        for p, sm in m.partitions.items()
+        if sm.start <= 1 < sm.end and m.is_leader(p))
+    svc = MetaService(mn)
+    try:
+        rmn = RemoteMetaNode(svc.addr)
+        with trace.Span("wire") as span:
+            rmn.read_dir(pid, 1)
+        assert "metanode" in span.modules()
+        text = exporter.registry("metanode").render()
+        assert "cfs_metanode_meta_op" in text
+        rmn.close()
+    finally:
+        svc.close()
 
 
 def test_rpc_server_trace_headers():
