@@ -117,7 +117,8 @@ result line:
             threads, each with its own RemoteCluster client, 512 files of
             4 KiB-256 KiB and 4 files of four 4 MiB appends; (c) every file
             read back whole and 256 seeded ranges; (d) S3: a user made by
-            `python -m chubaofs_tpu_torch.cli`, a bucket, 64 objects of
+            `python -m chubaofs_tpu_torch.cli`, a bucket (and a second one, timed
+            beside the first), 64 objects of
             1 KiB-1 MiB and a multipart upload of 4 x 8 MiB parts through the
             objectnode with SigV4, everything GET and Range GET back; (e) a hot
             volume, 32 files of 64 KiB-1 MiB through the datanodes' chain
@@ -132,10 +133,33 @@ result line:
             (cfs_codec_batches_total) before and after each step: it must
             grow in (b) and (d) and stay put in (c) and (e).
 
+  12. a cold volume through the port's client, B1 in the blobstore daemon:
+            phase 11's 9-node ProcCluster with no device (3 masters, 3
+            metanodes, 3 datanodes, the blobstore daemon) and a console over
+            every daemon's /metrics. (a) boot, a cold and a hot volume; (b)
+            where this process may mount FUSE, the `client` role as a daemon
+            kernel-mounts the cold volume: 256 files of 4 KiB-1 MiB and 4 of
+            64 MiB (sizes and bytes from --seed) written with plain os calls
+            by 4 threads and fsync'd, the client daemon stopped and started
+            again (its caches and the kernel's dropped), every byte read back,
+            stat'ed and listed; where it may not, the line says why and the
+            files go in through the SDK; (c) client.mount.Mount in process:
+            open, write, pread, append, truncate, unlink while open; the
+            port's libcfs built into build/libsdk_torch/, cfs_smoke on the
+            cold volume, cfs_posix_soak 4 3 on the hot one (a cold volume
+            refuses writes inside a file), and 64 MiB through the C ABI; (d)
+            the blobstore daemon restarted with one blobnode's reads failing,
+            and a 64 MiB file read back through the client, decoded on the
+            card; (e) the console's rollup reaches every daemon, cfs-top
+            --once over it, fsck finds the volume clean, preload walks the
+            small files; (f) unmount and stop: every daemon exits 0, no mount
+            is left. Codec batches (the blobstore daemon's /metrics) must
+            grow in (b), (c) and (d).
+
 Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c, each step
 of 10) is driven with every launch count set to 0 just before it and read
-just after; each step of 11 reads the blobstore daemon's codec batches just
-before and just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
+just after; each step of 11 and 12 reads the blobstore daemon's codec
+batches just before and just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
 JSON line (phase 8's steps, B1 launches, the card's name and power limit), a
 `soak` JSON line (phase 9's steps: wall seconds, rebuild seconds, shards and
 shards/s, bytes per repaired shard, download/decode overlap, the top three
@@ -146,7 +170,10 @@ launches, shards rebuilt, the card's name and power limit), a `procs` JSON
 line (phase 11's steps: wall seconds, cold write and read MiB/s, S3 PUT and
 GET ops/s and MiB/s, creates/s after the failover and its seconds, codec
 batches per step, the pids that held CUDA contexts and their memory, the
-card's name and power limit), a `kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
+card's name and power limit), a `client` JSON line (phase 12's steps: wall
+seconds, the FUSE state, write and read MiB/s through the mount and through
+libcfs, codec batches per step, the degraded read's seconds, the card's name
+and power limit), a `kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
 one-line result JSON.
 """
 
@@ -1692,6 +1719,19 @@ def retry(fn, what: str, timeout: float = 30.0):
             time.sleep(0.3)
 
 
+def nine_node_cluster():
+    """The harness's ProcCluster with 9 blobnodes x 2 disks in its blobstore
+    daemon: a blob over 1 MiB is EC(12,4), 16 units on 16 disks, which the
+    harness's 6 x 2 cannot place (phases 11 and 12)."""
+    from chubaofs_tpu_torch.testing.harness import ProcCluster
+
+    class Cluster(ProcCluster):
+        def blobstore_cfg(self):
+            return {**super().blobstore_cfg(), "nodes": 9}
+
+    return Cluster
+
+
 def phase_procs(root: str, device=None, files: int = 512, bigs: int = 4, ranges: int = 256,
                 objects: int = 64, parts: int = 4, hot_files: int = 32,
                 clients: int = 4) -> dict:
@@ -1706,14 +1746,8 @@ def phase_procs(root: str, device=None, files: int = 512, bigs: int = 4, ranges:
     from chubaofs_tpu_torch.blobstore.gateway import AccessClient
     from chubaofs_tpu_torch.master.api_service import MasterClient
     from chubaofs_tpu_torch.sdk.cluster import RemoteCluster
-    from chubaofs_tpu_torch.testing.harness import ProcCluster
 
-    class Cluster(ProcCluster):
-        def blobstore_cfg(self):
-            # 9 blobnodes x 2 disks: a blob over 1 MiB is EC(12,4), 16 units
-            # on 16 disks, which the harness's 6 x 2 cannot place
-            return {**super().blobstore_cfg(), "nodes": 9}
-
+    Cluster = nine_node_cluster()
     steps, batches, out = {}, {}, {}
     rng = np.random.default_rng(11)
     tree = {f"/d{i % 16:02d}/f{i:03d}": [rng.bytes(int(rng.integers(4 * 1024, 256 * 1024 + 1)))]
@@ -1817,6 +1851,13 @@ def phase_procs(root: str, device=None, files: int = 512, bigs: int = 4, ranges:
             check(status == 200, f"S3 create bucket: {status} {body[:300]}")
             on_every_master(c, lambda m: m.get_volume("bkt"), "bucket bkt")
             out["s3_bucket_s"] = time.perf_counter() - t1
+            # the second create pays no import: the objectnode built its
+            # gateway client at boot
+            t1 = time.perf_counter()
+            status, _, body = s3_request(s3, ak, sk, "PUT", "/bkt2")
+            check(status == 200, f"S3 create second bucket: {status} {body[:300]}")
+            on_every_master(c, lambda m: m.get_volume("bkt2"), "bucket bkt2")
+            out["s3_bucket2_s"] = time.perf_counter() - t1
 
             def put(i, key):
                 status, _, body = s3_request(s3, ak, sk, "PUT", f"/bkt/{key}", objs[key])
@@ -1989,6 +2030,372 @@ def phase_procs(root: str, device=None, files: int = 512, bigs: int = 4, ranges:
     return {"steps_s": steps, "codec_batches": batches, **out}
 
 
+# -- phase 12: a cold volume through the port's client ---------------------------
+
+CLIENT_STOP_DEADLINE_S = 30  # 12b, 12f: the client daemon unmounts and exits 0 on SIGTERM
+LIBCFS_CHUNK = 4 * MiB  # 12c: one cfs_write per chunk, one EC(12,4) blob each
+
+# 12c: the port's libcfs through its C ABI from a separate process. It loads
+# libcfs.so with ctypes, appends `chunks` seeded chunks to one file of the
+# cold volume, reads them back and prints the seconds of each half.
+LIBCFS_RATE = r"""
+import ctypes, json, sys, time
+import numpy as np
+lib = ctypes.CDLL(sys.argv[1])
+cfg, chunks, chunk, seed = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+i64 = ctypes.c_int64
+lib.cfs_new_client.restype = i64
+lib.cfs_new_client.argtypes = [ctypes.c_char_p]
+lib.cfs_last_error.restype = ctypes.c_char_p
+lib.cfs_close_client.argtypes = [i64]
+lib.cfs_mkdirs.argtypes = [i64, ctypes.c_char_p, ctypes.c_int]
+lib.cfs_open.argtypes = [i64, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+lib.cfs_close.argtypes = [i64, ctypes.c_int]
+lib.cfs_write.restype = lib.cfs_read.restype = i64
+lib.cfs_write.argtypes = [i64, ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, i64]
+lib.cfs_read.argtypes = [i64, ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, i64]
+def need(ok, what):
+    if not ok:
+        sys.exit(f"{what}: {lib.cfs_last_error().decode()}")
+rng = np.random.default_rng(seed)
+data = [rng.bytes(chunk) for _ in range(chunks)]
+cid = lib.cfs_new_client(cfg.encode())
+need(cid > 0, "new_client")
+need(lib.cfs_mkdirs(cid, b"/libcfs", 0o755) == 0, "mkdirs")
+fd = lib.cfs_open(cid, b"/libcfs/rate.bin", 0o102, 0o644)
+need(fd > 0, "open")
+t0 = time.perf_counter()
+for i, d in enumerate(data):
+    need(lib.cfs_write(cid, fd, d, chunk, i * chunk) == chunk, f"write {i}")
+write_s = time.perf_counter() - t0
+buf = ctypes.create_string_buffer(chunk)
+t0 = time.perf_counter()
+for i, d in enumerate(data):
+    need(lib.cfs_read(cid, fd, buf, chunk, i * chunk) == chunk and buf.raw == d, f"read {i}")
+read_s = time.perf_counter() - t0
+need(lib.cfs_close(cid, fd) == 0, "close")
+lib.cfs_close_client(cid)
+print(json.dumps({"bytes": chunks * chunk, "write_s": write_s, "read_s": read_s}))
+"""
+
+
+def mounted(path: str) -> bool:
+    with open("/proc/self/mounts") as f:
+        return any(line.split()[1] == path for line in f)
+
+
+def fuse_state() -> str:
+    """"kernel" where this process may mount FUSE, else why not."""
+    from chubaofs_tpu_torch.client.fuse_ll import fuse_available
+
+    if fuse_available():
+        return "kernel"
+    if not os.path.exists("/dev/fuse"):
+        return "unavailable: no /dev/fuse"
+    if os.geteuid() != 0:
+        return "unavailable: mount(2) needs root"
+    return "unavailable: /dev/fuse is not readable and writable"
+
+
+def libcfs_env() -> dict:
+    """The environment of a process that embeds the interpreter through
+    libcfs: libpython may belong to another prefix than this interpreter's
+    virtual environment, so it is handed every directory this interpreter
+    imports from, with this checkout first."""
+    paths = [str(ROOT)] + [p for p in sys.path if p and os.path.isdir(p)]
+    return dict(os.environ, CFS_PYTHONPATH=str(ROOT), PYTHONPATH=os.pathsep.join(paths))
+
+
+def client_tree(rng, files: int, bigs: int, big_mib: int) -> dict:
+    """`files` files of 4 KiB-1 MiB over 16 directories under /small and
+    `bigs` files of `big_mib` MiB under /big, sizes and bytes from `rng`."""
+    tree = {f"/small/d{i % 16:02d}/f{i:03d}": rng.bytes(int(rng.integers(4 * 1024, MiB + 1)))
+            for i in range(files)}
+    for b in range(bigs):
+        tree[f"/big/b{b}"] = rng.bytes(big_mib * MiB)
+    return tree
+
+
+def mount_steps(fs, rng) -> dict:
+    """12c in process: client.mount.Mount over the cold volume: open, write,
+    pread, append, truncate, and unlink while open. Returns its seconds and
+    bytes."""
+    from chubaofs_tpu_torch.client.mount import O_APPEND, O_CREAT, O_RDONLY, O_RDWR, O_WRONLY, Mount
+    from chubaofs_tpu_torch.sdk.fs import FsError
+
+    a, b = rng.bytes(8 * MiB), rng.bytes(3 * MiB + 17)
+    m = Mount(fs, volume="cold")
+    t0 = time.perf_counter()
+    try:
+        m.mkdir("/inproc")
+        fd = m.open("/inproc/a", O_CREAT | O_RDWR)
+        check(m.write(fd, a) == len(a), "Mount write")
+        check(m.read(fd, MiB, offset=5 * MiB) == a[5 * MiB:6 * MiB], "Mount pread")
+        m.close(fd)
+        fd = m.open("/inproc/a", O_WRONLY | O_APPEND)
+        check(m.write(fd, b) == len(b), "Mount append")
+        m.close(fd)
+        check(m.stat("/inproc/a")["size"] == len(a) + len(b), "Mount stat after append")
+        fd = m.open("/inproc/a", O_RDONLY)
+        check(m.read(fd, len(a) + len(b)) == a + b, "Mount read after append")
+        m.close(fd)
+        m.truncate("/inproc/a", 6 * MiB + 5)
+        check(m.stat("/inproc/a")["size"] == 6 * MiB + 5, "Mount stat after truncate")
+        fd = m.open("/inproc/a", O_RDONLY)
+        m.unlink("/inproc/a")
+        try:
+            m.stat("/inproc/a")
+            check(False, "Mount stat of an unlinked file")
+        except FsError as e:
+            check(e.code == "ENOENT", f"Mount stat after unlink: {e.code}")
+        check(m.statfs()["orphans"] == 1, "Mount orphan while open")
+        check(m.read(fd, 8 * MiB, offset=0) == a[:6 * MiB + 5], "Mount read after unlink")
+        m.close(fd)
+        check(m.statfs()["orphans"] == 0, "Mount orphan after the last close")
+        check(m.readdir("/inproc") == [], "Mount readdir after unlink")
+    finally:
+        m.umount()
+    return {"seconds": time.perf_counter() - t0, "bytes": len(a) + len(b)}
+
+
+def phase_client(root: str, seed: int, device=None, files: int = 256, bigs: int = 4,
+                 big_mib: int = 64, libcfs_chunks: int = 16, clients: int = 4) -> dict:
+    """Phase 12: a cold volume of the daemon cluster through the port's
+    client. Phase 11's 9-node ProcCluster (3 masters, 3 metanodes, 3
+    datanodes, the blobstore daemon on `device`: None is the CUDA device)
+    plus a console; the `client` role kernel-mounts the cold volume where
+    FUSE is available, the in-process Mount and the port's libcfs reach the
+    same volume. Device work is read from the blobstore daemon's /metrics
+    (cfs_codec_batches_total) before and after each step. Returns the
+    `client` line's fields."""
+    import signal
+
+    from chubaofs_tpu_torch import libsdk_boot
+    from chubaofs_tpu_torch.sdk.cluster import RemoteCluster
+    from chubaofs_tpu_torch.tools import cfstop
+    from chubaofs_tpu_torch.tools.fsck import Fsck
+    from chubaofs_tpu_torch.tools.preload import Preloader
+
+    steps, batches, out = {}, {}, {"fuse": fuse_state()}
+    rng = np.random.default_rng(seed)
+    tree = client_tree(rng, files, bigs, big_mib)
+    paths = sorted(tree)
+    tree_bytes = sum(len(d) for d in tree.values())
+    mp = os.path.join(root, "mnt")
+    libs = kernel_libraries()
+
+    t0 = time.perf_counter()
+    c = nine_node_cluster()(root, masters=3, metanodes=3, datanodes=3, blobstore=True,
+                            device=device)
+    live = {}
+    client_cfg = {"role": "client", "mountPoint": mp, "volName": "cold",
+                  "masterAddrs": c.master_addrs, "accessAddrs": [c.access_addr]}
+
+    def codec_batches() -> float:
+        return scrape(c.access_addr).get("cfs_codec_batches_total", 0.0)
+
+    def step(name, fn):
+        b0 = codec_batches()
+        t1 = time.perf_counter()
+        res = fn()
+        steps[name] = time.perf_counter() - t1
+        batches[name] = codec_batches() - b0
+        return res
+
+    def mount():
+        proc = c.spawn("client", client_cfg)
+        live["client"] = proc
+        boot = c.boot_info("client", timeout=120)
+        check(boot["addr"] == mp and mounted(mp), f"client daemon did not mount {mp}: {boot}")
+        return boot
+
+    def unmount():
+        proc = live.pop("client")
+        c.procs.pop("client", None)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=CLIENT_STOP_DEADLINE_S)
+        check(rc == 0 and not mounted(mp), f"client daemon exit {rc}, mounted {mounted(mp)}")
+
+    try:
+        # 12a: the cluster, a console over every daemon, a cold volume
+        console = c.spawn_console(metrics_addrs=[c.access_addr] + c.stats_addrs())
+        remote = RemoteCluster(c.master_addrs, access_addrs=[c.access_addr])
+        remote.create_volume("cold", cold=True)
+        remote.create_volume("hot", cold=False)
+        fs = remote.client("cold")
+        retry(lambda: fs.mkdirs("/big"), "mkdirs on the new cold volume")
+        steps["12a_boot"] = time.perf_counter() - t0
+
+        # 12b: the client role kernel-mounts the volume; plain os calls
+        if out["fuse"] == "kernel":
+            os.makedirs(mp)
+            out["client_boot"] = mount()
+
+            def write(i, path):
+                full = mp + path
+                try:
+                    with open(full, "wb") as f:
+                        f.write(tree[path])
+                        f.flush()
+                        os.fsync(f.fileno())
+                except OSError as e:
+                    raise AssertionError(
+                        f"write {path} ({len(tree[path])} B) through the mount: {e}; "
+                        f"{os.stat(full).st_size} B stored; client log:\n"
+                        f"{c.log_tail('client', 40)}") from e
+
+            def mount_write():
+                for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+                    os.makedirs(mp + d, exist_ok=True)
+                run_clients(write, paths, clients, "mount write")
+
+            step("12b_mount_write", mount_write)
+            check(batches["12b_mount_write"] > 0, "12b: writes through the mount coded no batch")
+            t1 = time.perf_counter()
+            unmount()  # drops the kernel's and the client's caches
+            mount()
+            out["remount_s"] = time.perf_counter() - t1
+
+            def read(i, path):
+                full = mp + path
+                with open(full, "rb") as f:
+                    check(f.read() == tree[path], f"read through the mount {path}")
+                check(os.stat(full).st_size == len(tree[path]), f"stat {path}")
+
+            def mount_read():
+                run_clients(read, paths, clients, "mount read")
+                for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+                    want = sorted(p.rsplit("/", 1)[1] for p in paths if p.rsplit("/", 1)[0] == d)
+                    check(sorted(os.listdir(mp + d)) == want, f"readdir {d}")
+
+            step("12b_mount_read", mount_read)
+            out["mount_write_mib_s"] = tree_bytes / MiB / steps["12b_mount_write"]
+            out["mount_read_mib_s"] = tree_bytes / MiB / steps["12b_mount_read"]
+        else:
+            # no kernel mount here: the same files go in through the SDK, so
+            # 12d and 12e have the same tree to read
+            for d in sorted({p.rsplit("/", 1)[0] for p in paths}):
+                fs.mkdirs(d)
+            for path in paths:
+                fs.write_file(path, tree[path])
+        out["tree_mib"] = tree_bytes / MiB
+        out["tree_files"] = len(paths)
+
+        # 12c: the in-process Mount, then the port's libcfs
+        res = step("12c_mount_inproc", lambda: mount_steps(fs, rng))
+        out["inproc_mount_mib_s"] = res["bytes"] / MiB / res["seconds"]
+        check(batches["12c_mount_inproc"] > 0, "12c: the in-process Mount coded no batch")
+        t1 = time.perf_counter()
+        lib_dir = libsdk_boot.build_libcfs()
+        out["libcfs_build_s"] = time.perf_counter() - t1
+        out["libcfs_dir"] = os.path.relpath(lib_dir, ROOT)
+        env = libcfs_env()
+        cold_cfg = json.dumps({"masterAddr": c.master_addrs, "volName": "cold",
+                               "accessAddr": [c.access_addr]})
+        hot_cfg = json.dumps({"masterAddr": c.master_addrs, "volName": "hot"})
+
+        def run_c(args, want):
+            proc = subprocess.run(args, env=env, capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0 and want in proc.stdout,
+                  f"{os.path.basename(args[0])}: {proc.returncode} {proc.stdout[-500:]} "
+                  f"{proc.stderr[-2000:]}")
+            return proc.stdout
+
+        def libcfs():
+            run_c([os.path.join(lib_dir, "cfs_smoke"), cold_cfg], "libcfs smoke ok")
+            # pwrite inside a file is refused on a cold volume (append-only, as
+            # in the reference), so the POSIX soak runs on the hot volume
+            run_c([os.path.join(lib_dir, "cfs_posix_soak"), hot_cfg, "4", "3"],
+                  "posix soak ok: 4 threads x 3 iters")
+            rate = run_c([sys.executable, "-c", LIBCFS_RATE,
+                          os.path.join(lib_dir, "libcfs.so"), cold_cfg,
+                          str(libcfs_chunks), str(LIBCFS_CHUNK), str(seed)], "write_s")
+            return json.loads(rate.strip().splitlines()[-1])
+
+        rate = step("12c_libcfs", libcfs)
+        out["libcfs_write_mib_s"] = rate["bytes"] / MiB / rate["write_s"]
+        out["libcfs_read_mib_s"] = rate["bytes"] / MiB / rate["read_s"]
+        check(batches["12c_libcfs"] > 0, "12c: libcfs writes coded no batch")
+
+        # 12d: one blobnode stops answering reads; a big file reads back
+        # through the client, its stripes decoded on the card. The blobstore
+        # daemon restarts from its own config with that node's reads failing.
+        node = 1
+        blob_proc = c.procs["blobstore"]
+        c.kill("blobstore", sig=signal.SIGTERM)
+        check(blob_proc.returncode == 0, f"blobstore daemon exit {blob_proc.returncode}")
+        env0 = c.env
+        c.env = dict(env0, CFS_FAILPOINTS=f"blobnode.get_shard=error#{node}")
+        try:
+            c.spawn("blobstore", c.blobstore_cfg())
+        finally:
+            c.env = env0
+        c._await_listen(c.access_addr, name="blobstore")
+        victim = next(p for p in paths if p.startswith("/big/")) if bigs else paths[-1]
+
+        def degraded_read():
+            if out["fuse"] == "kernel":
+                with open(mp + victim, "rb") as f:
+                    got = f.read()
+            else:
+                got = fs.read_file(victim)
+            check(got == tree[victim], f"degraded read {victim}")
+
+        step("12d_degraded_read", degraded_read)
+        out["degraded_read_file"] = victim
+        out["degraded_read_mib"] = len(tree[victim]) / MiB
+        check(batches["12d_degraded_read"] > 0, "12d: the degraded read decoded no batch")
+
+        # 12e: the console, cfs-top, fsck and preload
+        def tools():
+            health = json.loads(urllib_get(console, "/api/health"))
+            targets = {t["target"] for t in health["targets"]}
+            check(not health["unreachable"] and targets == {*c.master_addrs, c.access_addr,
+                                                            *c.stats_addrs()},
+                  f"console rollup: {health['unreachable']} unreachable, {targets}")
+            overview = json.loads(urllib_get(console, "/api/overview"))
+            check("cold" in {v["name"] for v in overview["volumeList"]}, "console volumes")
+            buf = io.StringIO()
+            check(cfstop.main(["--console", console, "--once", "--interval", "0.5"],
+                              out=buf) == 0, "cfs-top --once")
+            text = buf.getvalue()
+            check(all(a in text for a in c.master_addrs + [c.access_addr]), "cfs-top rows")
+            out["cfstop_lines"] = len(text.splitlines())
+            rep = Fsck(fs.meta).check()
+            check(rep.clean, f"fsck: {rep.summary()}")
+            out["fsck"] = {"inodes": rep.inode_count, "dentries": rep.dentry_count}
+            small = [p for p in paths if p.startswith("/small/")]
+            stats = Preloader(fs, workers=clients).run("/small")
+            check(stats.errors == 0 and stats.files == len(small)
+                  and stats.bytes == sum(len(tree[p]) for p in small), f"preload: {stats}")
+            out["preload"] = {"files": stats.files, "bytes": stats.bytes}
+
+        step("12e_console_and_tools", tools)
+    finally:
+        # 12f: unmount and stop every daemon; no mount is left behind
+        t1 = time.perf_counter()
+        try:
+            if "client" in live:
+                unmount()
+        finally:
+            procs = dict(c.procs)
+            c.close()
+            steps["12f_stop"] = time.perf_counter() - t1
+            check(not mounted(mp), f"{mp} is still mounted")
+    codes = {n: p.poll() for n, p in procs.items()}
+    check(all(rc == 0 for rc in codes.values()), f"daemon exit codes after SIGTERM: {codes}")
+    check(not cluster_pids(root), f"cluster processes left: {cluster_pids(root)}")
+    check(kernel_libraries() == libs, "a daemon rebuilt a kernel")
+    return {"steps_s": steps, "codec_batches": batches, **out}
+
+
+def urllib_get(addr: str, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=60) as resp:
+        return resp.read().decode()
+
+
 def _missing(cluster, unit, bid) -> bool:
     from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
 
@@ -2019,7 +2426,13 @@ def build_all(libs) -> float:
     return time.perf_counter() - t0
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="chip smoke test of chubaofs_tpu_torch")
+    ap.add_argument("--seed", type=int, default=12,
+                    help="seed of phase 12's file sizes and bytes")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this runs on a GPU",
               file=sys.stderr)
@@ -2192,6 +2605,12 @@ def main() -> int:
         procs_res = phase_procs(os.path.join(tmp, "p11"))
         wall["11_procs"] = time.perf_counter() - t0
 
+        # phase 12: a cold volume through the port's client, B1 in the
+        # blobstore daemon's process
+        t0 = time.perf_counter()
+        client_res = phase_client(os.path.join(tmp, "p12"), args.seed)
+        wall["12_client"] = time.perf_counter() - t0
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -2222,6 +2641,9 @@ def main() -> int:
     log("procs " + json.dumps({"seconds": wall["11_procs"], **procs_res,
                                "device": torch.cuda.get_device_name(0),
                                "nvidia_smi": nvidia_smi_line()}))
+    log("client " + json.dumps({"seconds": wall["12_client"], **client_res,
+                                "device": torch.cuda.get_device_name(0),
+                                "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))

@@ -12,11 +12,11 @@ supervision belongs to the operator (systemd, docker, a test harness).
 The device lives in one role. The blobstore daemon runs the GF codec on the
 device its config's `"device"` key names (default: the CUDA device; with no
 GPU it refuses to start rather than run on the host). The master, metanode,
-datanode, objectnode and authnode roles are host work: they read no
-`"device"` key and never touch the GPU, so they boot on a host without one.
-Cold file data and S3 objects reach the codec over HTTP through the
-blobstore daemon's access gateway. The console and client roles wait for
-their planes (console/, client/).
+datanode, objectnode, authnode, console and client roles are host work:
+they read no `"device"` key and never touch the GPU, so they boot on a host
+without one. Cold file data, S3 objects and files written through a client
+mount reach the codec over HTTP through the blobstore daemon's access
+gateway.
 
 Self-healing placement: the master re-sends partition-create admin tasks to
 any replica whose heartbeat doesn't list the partition yet (the reference
@@ -853,6 +853,9 @@ class ObjectNodeDaemon(_Daemon):
         self.cluster = RemoteCluster(cfg["masterAddrs"],
                                      access_addrs=cfg.get("accessAddrs"),
                                      admin_ticket=_admin_ticket(cfg))
+        # the gateway client is built here, before the boot line, and not
+        # on the first bucket create
+        self.cluster.warm_data_backend()
         users = cfg.get("users")
         if users is None:
             svc_secret = cfg.get("serviceSecret")
@@ -922,6 +925,52 @@ class AuthNodeDaemon(_Daemon):
         self.net.close()
 
 
+class ConsoleDaemon(_Daemon):
+    """Role console (console/server.go analog)."""
+
+    def __init__(self, cfg: dict):
+        super().__init__()
+        from chubaofs_tpu_torch.console import Console
+
+        host, port = _addr_split(cfg.get("listen", "127.0.0.1:0"))
+        self.console = Console(cfg["masterAddrs"], host=host, port=port,
+                               metrics_addrs=cfg.get("metricsAddrs"))
+        self.addr = self.console.addr
+
+    def stop(self):
+        super().stop()
+        self.console.stop()
+
+
+class ClientDaemon(_Daemon):
+    """Role client (client/fuse.go analog): kernel-mount a volume.
+
+    Config: mountPoint, volName, masterAddrs, optional accessAddrs (cold
+    volumes). Requires /dev/fuse; fails fast with a clear error otherwise.
+    The client holds no codec: a cold volume's data is coded in the
+    blobstore daemon behind accessAddrs. Its /metrics side-door
+    (`statsListen`, as the metanode's) serves the mount's counters."""
+
+    def __init__(self, cfg: dict):
+        super().__init__()
+        from chubaofs_tpu_torch.client.fuse_ll import fuse_available, mount_volume
+
+        if not fuse_available():
+            raise SystemExit("role client needs /dev/fuse (and privilege)")
+        self.fuse = mount_volume(cfg["masterAddrs"], cfg["volName"],
+                                 cfg["mountPoint"],
+                                 access_addrs=cfg.get("accessAddrs"))
+        self.addr = cfg["mountPoint"]
+        self.stats_server = _stats_server(cfg, "client")
+        self.stats_addr = self.stats_server.addr if self.stats_server else ""
+
+    def stop(self):
+        super().stop()
+        self.fuse.unmount()
+        if self.stats_server is not None:
+            self.stats_server.stop()
+
+
 ROLES = {
     "master": MasterDaemon,
     "metanode": MetaNodeDaemon,
@@ -929,6 +978,8 @@ ROLES = {
     "blobstore": BlobstoreDaemon,
     "objectnode": ObjectNodeDaemon,
     "authnode": AuthNodeDaemon,
+    "console": ConsoleDaemon,
+    "client": ClientDaemon,
 }
 
 
@@ -957,7 +1008,8 @@ def main(argv: list[str] | None = None) -> int:
         boot["stats_addr"] = stats_addr  # /metrics side-door (statsListen)
     print(json.dumps(boot), flush=True)  # obslint: boot line IS the stdout protocol (harness parses it)
     # SIGTERM (supervisors, ProcCluster.close) must run the same graceful
-    # stop as ^C
+    # stop as ^C: the client role in particular holds a kernel mount that
+    # outlives the process unless unmounted here
     from chubaofs_tpu_torch.utils.shutdown import await_shutdown, shutdown_event
 
     await_shutdown(shutdown_event())

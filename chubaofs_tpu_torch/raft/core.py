@@ -424,8 +424,13 @@ class RaftCore:
                 if self.log_rewind is None or idx < self.log_rewind:
                     self.log_rewind = idx
             self.entries.append(ent)
+        # commit no further than this message's last entry: a tail beyond it
+        # may be a deposed leader's uncommitted proposals that the leader
+        # has not overwritten yet, and applying one would answer its waiter
+        # with a success the cluster never committed
         if m.commit > self.commit:
-            self.commit = min(m.commit, self.last_index)
+            self.commit = max(self.commit,
+                              min(m.commit, m.prev_index + len(m.entries)))
             self._emit_committed()
         self._send(
             type="append_resp",

@@ -132,6 +132,8 @@ class RPCServer:
     `/slowops` the recent slow-op audit entries — so the console collector
     and `cfs-trace` can fetch one trace's spans from every daemon it
     crossed with nothing but the addresses `cfs-stat` already scrapes.
+    `/debug/runtime` says which of the port's modules (and torch) the
+    process has loaded and whether it holds a CUDA context.
 
     The health-plane side-doors ride the same mount: `/debug/prof` serves
     the sampling profiler (`?seconds=N` runs an on-demand capture; bare, it
@@ -295,8 +297,26 @@ class RPCServer:
             return Response.json({"dir": rec.root,
                                   "bundles": rec.list_bundles()})
 
+        def debug_runtime_route(r):
+            # what this process has loaded and whether it opened a CUDA
+            # context; torch is looked up, never imported, so a host role
+            # that has not imported it reads false without paying for it
+            import os
+            import sys
+
+            torch = sys.modules.get("torch")
+            return Response.json({
+                "pid": os.getpid(),
+                "modules": sorted(m for m in sys.modules
+                                  if m == "torch"
+                                  or m.startswith("chubaofs_tpu_torch.")),
+                "cuda_initialized": bool(torch is not None
+                                         and torch.cuda.is_initialized()),
+            })
+
         if metrics:
             router.get("/metrics", metrics_route)
+            router.get("/debug/runtime", debug_runtime_route)
             router.get("/traces", traces_route)
             router.get("/traces/recent", traces_recent_route)
             router.get("/slowops", slowops_route)

@@ -105,6 +105,14 @@ class RemoteCluster:
             self._backend = RemoteDataBackend(AccessClient(self.access_addrs))
         return self._backend
 
+    def warm_data_backend(self) -> None:
+        """Builds the gateway client now when access addresses are set.
+        Its import pulls in the codec chain and torch, seconds on a cold
+        host: a role calls this at boot so that no request pays for it
+        (`client()` builds it too)."""
+        if self.access_addrs:
+            self.data_backend
+
     # -- FsCluster surface -----------------------------------------------------
 
     def create_volume(self, name: str, cold: bool = True) -> None:

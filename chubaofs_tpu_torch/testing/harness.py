@@ -221,6 +221,18 @@ class ProcCluster:
                 out.append(addr)
         return out
 
+    def spawn_console(self, metrics_addrs: list[str] | None = None,
+                      timeout: float = 60.0) -> str:
+        """Spawn a console daemon over this cluster's masters (plus any
+        extra /metrics targets) and return its address once it listens."""
+        addr = f"127.0.0.1:{free_port()}"
+        self.spawn("console", {
+            "role": "console", "masterAddrs": self.master_addrs,
+            "listen": addr, "metricsAddrs": list(metrics_addrs or []),
+        })
+        self._await_listen(addr, name="console", timeout=timeout)
+        return addr
+
     # -- cluster waiting -------------------------------------------------------
 
     def client_master(self):

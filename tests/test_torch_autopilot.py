@@ -9,12 +9,14 @@ int-safe knob nudges and the master actuators' leader gate (on a fake
 master); the alerts.on_firing/on_resolved hooks through a real
 AlertManager; rollup-fed edge dedup (observe_rollup); and the flight
 recorder's autopilot section; cfs-top's AUTO cell, and cfs-events' cause ->
-action -> resolution chain, by library and over a daemon's /events. The
-cases that drive master/, console/ or cfs-cli wait for those ports."""
+action -> resolution chain, by library and over a daemon's /events; the
+/autopilot side-door through the port's console and cfs-cli."""
 
 import io
 import json
 import time
+import urllib.error
+import urllib.request
 
 import pytest
 
@@ -509,4 +511,53 @@ def test_cfsevents_cli_correlates_by_fingerprint(journal):
         assert f"alert {fp}" in text and "resolved" in text
         assert "autopilot_executed" in text and "cause" in text
     finally:
+        srv.stop()
+
+
+def _get(addr: str, path: str) -> dict:
+    return json.loads(urllib.request.urlopen(
+        f"http://{addr}{path}", timeout=10).read())
+
+
+def test_autopilot_side_door_console_and_cli(journal):
+    from chubaofs_tpu_torch.cli.main import CLI
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+
+    srv = RPCServer(Router(), module="aptest").start()
+    console = Console([srv.addr])
+    try:
+        # disarmed process: the stub status, no controller minted
+        st = _get(srv.addr, "/autopilot")
+        assert st["enabled"] is False and st["bindings"] == []
+        # op=dry-run arms shadow mode; op=enable goes live; op=disable
+        # stands down — each answers with the fresh status
+        st = _get(srv.addr, "/autopilot?op=dry-run")
+        assert st["dry_run"] is True and st["enabled"] is True
+        assert any(b["rule"] == "slo_failing" for b in st["bindings"])
+        st = _get(srv.addr, "/autopilot?op=dry-run&off=1")
+        assert st["dry_run"] is False
+        st = _get(srv.addr, "/autopilot?op=disable")
+        assert st["enabled"] is False
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(
+                f"http://{srv.addr}/autopilot?op=bogus", timeout=10)
+        assert ei.value.code == 400
+        st = _get(srv.addr, "/autopilot?op=enable")
+        assert st["enabled"] is True
+        assert st["budget"]["remaining"] == st["budget"]["per_hour"]
+        # console rollup: per-target rows + cluster budget totals
+        roll = _get(console.addr, "/api/autopilot")
+        assert roll["enabled"] is True
+        assert [r["target"] for r in roll["targets"]] == [srv.addr]
+        assert roll["budget"]["per_hour"] == st["budget"]["per_hour"]
+        # cfs-cli renders mode, budget and the binding table
+        buf = io.StringIO()
+        CLI([srv.addr], out=buf).autopilot_status(None)
+        text = buf.getvalue()
+        assert "Autopilot : enabled" in text
+        assert "slo_failing" in text and "rebalance_hot" in text
+    finally:
+        console.stop()
         srv.stop()

@@ -5,7 +5,8 @@ MiniCluster(device="cpu"), raft group commit and transport under faults, and
 rename-over and meta-submit faults on FsCluster(device="cpu"). Tier-1 runs the
 registry unit tests plus seeded SMOKE soaks (small clusters, sub-second
 deadlines); the full 3-plan acceptance soak is `slow`. Everything here
-carries the `chaos` marker. The FUSE cases wait for the port of client/."""
+carries the `chaos` marker. The FUSE cases drive the port's client/fuse_ll.py
+(the kernel mount where /dev/fuse and privilege allow)."""
 
 import os
 import struct
@@ -655,3 +656,153 @@ def test_meta_submit_failpoint_surfaces_as_fs_error(fscluster):
         chaos.reset()
     fs.write_file("/fp_meta.txt", b"x")  # disarmed: path works again
     assert fs.read_file("/fp_meta.txt") == b"x"
+
+
+def test_readdir_snapshot_stable_across_mutation(fscluster):
+    """ADVICE item 4: OPENDIR snapshots the listing into a real fh; a
+    directory mutated between two READDIR batches neither skips nor repeats
+    entries within one open handle. Driven at the protocol layer, so it
+    runs without /dev/fuse."""
+    from chubaofs_tpu_torch.client.fuse_ll import (
+        DIRENT, OPEN_OUT, READ_IN, RELEASE_IN, FuseServer)
+
+    fs = fscluster.client("chaosvol")
+    fs.mkdir("/snapdir")
+    names = [f"entry_{i:03d}" for i in range(40)]
+    for n in names:
+        fs.write_file(f"/snapdir/{n}", b"x")
+    ino = fs.stat("/snapdir")["ino"]
+    srv = FuseServer(fs, "/nonexistent-mountpoint", volume="chaosvol")
+
+    fh, _, _ = OPEN_OUT.unpack(srv._do_opendir(ino, b"", 0, 0))
+    assert fh != 0, "OPENDIR must return a real fh"
+
+    def read_batch(offset, size=512):
+        body = READ_IN.pack(fh, offset, size, 0, 0, 0, 0)
+        out = srv._do_readdir(ino, body, 0, 0)
+        got, pos = [], 0
+        while pos < len(out):
+            d_ino, off, namelen, _typ = DIRENT.unpack_from(out, pos)
+            name = out[pos + DIRENT.size: pos + DIRENT.size + namelen]
+            got.append((name.decode(), off))
+            pos += DIRENT.size + namelen
+            pos += -pos % 8
+        return got
+
+    first = read_batch(0)
+    assert first, "first batch empty"
+    # mutate the directory between batches: unlink one not-yet-listed entry,
+    # create a new one — the OPEN handle's view must not shift
+    fs.unlink("/snapdir/entry_030")
+    fs.write_file("/snapdir/entry_999", b"x")
+    seen = [n for n, _ in first]
+    offset = first[-1][1]
+    while True:
+        batch = read_batch(offset)
+        if not batch:
+            break
+        seen.extend(n for n, _ in batch)
+        offset = batch[-1][1]
+    want = [".", ".."] + names  # the snapshot: entry_999 absent, 030 present
+    assert seen == want
+    srv._do_releasedir(ino, RELEASE_IN.pack(fh, 0, 0, 0), 0, 0)
+    assert fh not in srv._dirhs
+    # a FRESH opendir sees the mutation
+    fh2, _, _ = OPEN_OUT.unpack(srv._do_opendir(ino, b"", 0, 0))
+    fresh = {n for n, _ in read_batch_fh(srv, ino, fh2)}
+    assert "entry_999" in fresh and "entry_030" not in fresh
+
+
+def read_batch_fh(srv, ino, fh):
+    from chubaofs_tpu_torch.client.fuse_ll import DIRENT, READ_IN
+
+    got, offset = [], 0
+    while True:
+        body = READ_IN.pack(fh, offset, 4096, 0, 0, 0, 0)
+        out = srv._do_readdir(ino, body, 0, 0)
+        if not out:
+            return got
+        pos = 0
+        while pos < len(out):
+            d_ino, off, namelen, _typ = DIRENT.unpack_from(out, pos)
+            got.append((out[pos + DIRENT.size:
+                            pos + DIRENT.size + namelen].decode(), off))
+            offset = off
+            pos += DIRENT.size + namelen
+            pos += -pos % 8
+
+
+def test_fuse_fsx_round_under_meta_latency_faults(fscluster, tmp_path):
+    """A short fsx round (pwrite/truncate/reopen/RENAME-OVER against a
+    shadow model) through a REAL kernel mount while seeded latency faults
+    ride every meta submit — semantics must hold exactly; only latency may
+    move. Skips where /dev/fuse or privilege is absent."""
+    import subprocess
+    import sys
+
+    from chubaofs_tpu_torch.client.fuse_ll import FuseServer, fuse_available
+
+    if not fuse_available():
+        pytest.skip("/dev/fuse unavailable or no privilege")
+    fs = fscluster.client("chaosvol")
+    mp = tmp_path / "mnt"
+    mp.mkdir()
+    srv = FuseServer(fs, str(mp), volume="chaosvol")
+    srv.mount()
+    srv.serve_background()
+    script = r"""
+import os, random, sys
+mnt, seed = sys.argv[1], int(sys.argv[2])
+rnd = random.Random(seed)
+path = os.path.join(mnt, "cfsx.dat")
+shadow = bytearray()
+fd = os.open(path, os.O_CREAT | os.O_RDWR)
+for step in range(40):
+    op = rnd.choice(["write", "write", "read", "truncate", "reopen",
+                     "rename_over"])
+    if op == "write":
+        off = rnd.randrange(0, len(shadow) + 1)
+        blob = bytes(rnd.getrandbits(8) for _ in range(rnd.randrange(1, 3000)))
+        os.pwrite(fd, blob, off)
+        if off > len(shadow):
+            shadow.extend(b"\0" * (off - len(shadow)))
+        shadow[off:off + len(blob)] = blob
+    elif op == "read" and shadow:
+        off = rnd.randrange(0, len(shadow))
+        n = rnd.randrange(1, len(shadow) - off + 1)
+        assert os.pread(fd, n, off) == bytes(shadow[off:off + n]), step
+    elif op == "truncate":
+        n = rnd.randrange(0, 20000)
+        os.ftruncate(fd, n)
+        if n <= len(shadow):
+            del shadow[n:]
+        else:
+            shadow.extend(b"\0" * (n - len(shadow)))
+    elif op == "reopen":
+        os.close(fd); fd = os.open(path, os.O_RDWR)
+    elif op == "rename_over":
+        os.close(fd)
+        a = os.path.join(mnt, "cfsx.dat")
+        b = os.path.join(mnt, "cfsx_victim.dat")
+        victim = b if path == a else a  # never the live file itself
+        open(victim, "wb").write(b"victim")
+        os.rename(path, victim)
+        path = victim
+        fd = os.open(path, os.O_RDWR)
+    assert os.fstat(fd).st_size == len(shadow), f"step {step}: size drift"
+os.close(fd)
+assert open(path, "rb").read() == bytes(shadow)
+print("CHAOS-FSX-OK")
+"""
+    # seeded latency chaos on the meta plane: 30% of submits pay 20ms
+    chaos.arm("meta.submit", "delay(0.02)", prob=0.3, seed=99)
+    try:
+        r = subprocess.run([sys.executable, "-c", script, str(mp), "7"],
+                           capture_output=True, text=True, timeout=300,
+                           env={"PATH": os.environ.get("PATH", "")})
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "CHAOS-FSX-OK" in r.stdout
+        assert chaos.fired("meta.submit") > 0, "latency faults never fired"
+    finally:
+        chaos.reset()
+        srv.unmount()

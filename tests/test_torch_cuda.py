@@ -382,3 +382,24 @@ def test_proc_cluster_cold_volume_on_card(dev, tmp_path, monkeypatch):
             assert fs.read_file(path, 100, 1000) == data[100:1100]
     finally:
         c.close()
+
+
+def test_client_phase_on_card(dev, tmp_path, monkeypatch):
+    """chip_smoke.py phase 12's steps at a small size: a cold volume of the
+    daemon cluster through the port's client (the kernel mount where FUSE
+    is available, the in-process Mount, the port's libcfs), a degraded read
+    decoded on the card, the console and the tools. The blobstore daemon's
+    codec batches grow where data is written and where it is decoded."""
+    import pathlib
+
+    monkeypatch.delenv("CFS_GF_PIPELINED", raising=False)
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    res = chip_smoke.phase_client(str(tmp_path / "p12"), 12, files=16, bigs=1,
+                                  big_mib=8, libcfs_chunks=2)
+    for name in ("12c_mount_inproc", "12c_libcfs", "12d_degraded_read"):
+        assert res["codec_batches"][name] > 0, name
+    if res["fuse"] == "kernel":
+        assert res["codec_batches"]["12b_mount_write"] > 0
+        assert res["codec_batches"]["12b_mount_read"] == 0

@@ -188,8 +188,9 @@ def test_daemon_process_without_gpu_exits_without_boot_line(tmp_path):
 
 
 def test_unknown_role_names_the_valid_roles(tmp_path):
-    # the console role is still unported; the six roles of the cluster are
+    # the eight roles of the reference's cmd.py, console and client included
     with pytest.raises(SystemExit, match=(
-            r"unknown role 'console'; valid: \['authnode', 'blobstore', "
-            r"'datanode', 'master', 'metanode', 'objectnode'\]")):
-        start_role({"role": "console", "root": str(tmp_path)})
+            r"unknown role 'nosuchrole'; valid: \['authnode', 'blobstore', "
+            r"'client', 'console', 'datanode', 'master', 'metanode', "
+            r"'objectnode'\]")):
+        start_role({"role": "nosuchrole", "root": str(tmp_path)})

@@ -4,8 +4,9 @@ against the port on the CPU.
 Event journal (emit, query, cursor, ring + rotor), span-trace joins, the
 alert rules (gauge, counter rate, event seen, SLO failing), silences,
 clustermgr and SLO emitters, the RPCServer's event/alert routes, and the
-cfs-top UP/ALERTS columns. The console rollup, cfs-events CLI and capacity
-collector cases wait for the ports of console/ and tools/capacity.py."""
+cfs-top UP/ALERTS columns, the console rollup and the cfs-events CLI over
+the port's console. The capacity collector case waits for the port of
+tools/capacity.py."""
 
 import io
 import json
@@ -415,3 +416,114 @@ def test_cfstop_up_alerts_and_restart_crosscheck():
 
 
 # -- capacity collector archives the timeline ----------------------------------
+
+
+def test_console_events_rollup_cursor_and_partial_failure(journal):
+    """Cursor pagination stable across polls; an unreachable target is
+    REPORTED (and its cursor never advances past events it might hold) —
+    the /api/health partial-failure contract applied to the timeline."""
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.testing.harness import free_port
+
+    srv = RPCServer(Router(), module="evroll").start()
+    dead = f"127.0.0.1:{free_port()}"
+    console = Console([srv.addr], metrics_addrs=[dead])
+    try:
+        out = _get(console.addr, "/api/events?n=1000")
+        assert dead in out["unreachable"]
+        assert any(e["type"] == "daemon_boot" for e in out["events"])
+        assert all(e["target"] == srv.addr for e in out["events"])
+        cursor = out["cursor"]
+        assert cursor[srv.addr] > 0 and dead not in cursor
+        # poll again with the cursor: nothing re-delivered
+        q = urllib.parse.quote(json.dumps(cursor))
+        out2 = _get(console.addr, f"/api/events?cursor={q}")
+        assert out2["events"] == []
+        # a new event arrives exactly once on the next poll
+        events.emit("tier_promote", entity="blob(1,2)",
+                    detail={"vid": 1, "bid": 2})
+        out3 = _get(console.addr, f"/api/events?cursor={q}")
+        assert [e["type"] for e in out3["events"]] == ["tier_promote"]
+        q3 = urllib.parse.quote(json.dumps(out3["cursor"]))
+        out4 = _get(console.addr, f"/api/events?cursor={q3}")
+        assert out4["events"] == []
+        # malformed cursors are a 400, not a 500 — not-JSON, non-dict, and
+        # a null seq (TypeError path) alike
+        for bad in ("notjson", urllib.parse.quote('[1,2]'),
+                    urllib.parse.quote('{"t:1": null}')):
+            req = urllib.request.Request(
+                f"http://{console.addr}/api/events?cursor={bad}")
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(req, timeout=10)
+            assert ei.value.code == 400, bad
+        # /api/alerts: the corpse shows as a failing row, never dropped
+        roll = _get(console.addr, "/api/alerts")
+        by_target = {t["target"]: t for t in roll["targets"]}
+        assert by_target[dead]["unreachable"] is True
+        assert dead in roll["unreachable"]
+        assert by_target[srv.addr].get("unreachable") is not True
+        assert "alerts" in by_target[srv.addr]
+    finally:
+        console.stop()
+        srv.stop()
+        alerts.deactivate()
+
+
+def test_cfsevents_cli_timeline_alerts_and_correlate(journal):
+    from chubaofs_tpu_torch.blobstore import trace
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools import cfsevents
+    from chubaofs_tpu_torch.utils import tracesink
+
+    srv = RPCServer(Router(), module="evcli").start()
+    console = Console([srv.addr])
+    # a persisted span + a correlated event (the repair-trace join shape)
+    tracesink.configure(sample=1.0)
+    with trace.child_of(None, "scheduler.repair") as span:
+        trace.push_span(span)
+        try:
+            events.emit("task_finished", entity="t42",
+                        detail={"kind": "disk_repair"})
+        finally:
+            trace.pop_span()
+    try:
+        buf = io.StringIO()
+        rc = cfsevents.main(["--console", console.addr, "--n", "1000"],
+                            out=buf)
+        text = buf.getvalue()
+        assert rc == 0
+        assert "daemon_boot" in text and "task_finished" in text
+        # --type filter
+        buf = io.StringIO()
+        rc = cfsevents.main(["--console", console.addr,
+                             "--type", "task_finished", "--json"], out=buf)
+        out = json.loads(buf.getvalue())
+        assert rc == 0
+        assert {e["type"] for e in out["events"]} == {"task_finished"}
+        # --alerts view
+        buf = io.StringIO()
+        rc = cfsevents.main(["--console", console.addr, "--alerts"], out=buf)
+        assert rc == 0 and "firing:" in buf.getvalue()
+        # --correlate joins the event with the trace's spans, time-ordered
+        buf = io.StringIO()
+        rc = cfsevents.main(["--console", console.addr,
+                             "--correlate", span.trace_id, "--json"], out=buf)
+        out = json.loads(buf.getvalue())
+        assert rc == 0
+        kinds = [i["kind"] for i in out["items"]]
+        assert "event" in kinds and "span" in kinds
+        ts = [i["t"] for i in out["items"]]
+        assert ts == sorted(ts)
+        # direct --addr mode works without a console
+        buf = io.StringIO()
+        rc = cfsevents.main(["--addr", srv.addr, "--type", "task_finished"],
+                            out=buf)
+        assert rc == 0 and "task_finished" in buf.getvalue()
+    finally:
+        console.stop()
+        srv.stop()
+        alerts.deactivate()

@@ -7,8 +7,8 @@ key and histogram helpers), SLO burn windows, the cfs-stat restart clamp, the
 evloop loop-lag histogram, /health flipping failing under a sustained
 latency failpoint on a MiniCluster(device="cpu"), the profile/history/health
 acceptance over a PUT burst (with cfs-trace --prof on the same side-door),
-and cfs-top's rollup split and row math. The case that needs console/
-waits for that port."""
+and cfs-top's rollup split and row math, and cfs-top --once over the
+port's console."""
 
 import io
 import json
@@ -615,3 +615,31 @@ def test_cfstop_row_math():
     restarted = dict(cur, **{"cfs_access_put_count": 40.0})
     row = compute_row("t:5", prev, restarted, 10.0, {"status": "ok"})
     assert row["put_s"] == 4.0  # 40 post-restart ops / 10s, not 0
+
+
+def test_cfstop_once_over_console():
+    """cfs-top --once polls a real console rollup and renders one frame."""
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools import cfstop
+
+    srv = RPCServer(Router(), module="toptarget").start()
+    console = Console([srv.addr])
+    try:
+        buf = io.StringIO()
+        rc = cfstop.main(["--console", console.addr, "--once",
+                          "--interval", "0.3"], out=buf)
+        text = buf.getvalue()
+        assert rc == 0
+        assert srv.addr in text and "SLO" in text
+        assert "cluster: ok" in text, text
+        # JSON mode for scripts
+        buf = io.StringIO()
+        rc = cfstop.main(["--console", console.addr, "--once",
+                          "--interval", "0.2", "--json"], out=buf)
+        rows = json.loads(buf.getvalue())["rows"]
+        assert rc == 0 and rows[0]["target"] == srv.addr
+    finally:
+        console.stop()
+        srv.stop()

@@ -43,10 +43,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad, names = proc.stdout.rstrip("\n").split("\n")
-    assert int(count) >= 105, proc.stdout  # every module of the slices imported
+    assert int(count) >= 117, proc.stdout  # every module of the slices imported
     assert bad == "", f"port pulled in: {bad}"
-    # the daemon slice's planes, the grid slice and the file cluster are on
-    # the walk
+    # the daemon slice's planes, the grid slice, the file cluster, the
+    # console, the client and the operator tools are on the walk
     names = set(names.split(","))
     for mod in ("proto.packet", "rpc.evloop", "rpc.httpevloop", "rpc.server",
                 "rpc.client", "rpc.pool", "autopilot.controller",
@@ -62,13 +62,16 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "cli.main", "utils.qos", "objectnode.acl",
                 "objectnode.auth", "objectnode.cors", "objectnode.policy",
                 "objectnode.volume", "objectnode.multipart",
-                "objectnode.server"):
+                "objectnode.server", "console", "console.server", "client",
+                "client.mount", "client.fuse_ll", "libsdk_boot",
+                "tools.fsck", "tools.authtool", "tools.autofs",
+                "tools.fdstore", "tools.preload", "tools.localcluster"):
         assert f"chubaofs_tpu_torch.{mod}" in names, mod
 
 
 def test_port_sources_name_no_jax_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 106
+    assert len(files) >= 118
     for f in files:
         hits = _BAD_IMPORT.findall(f.read_text(encoding="utf-8"))
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -179,7 +182,16 @@ def test_slice_modules_exist_with_reference_names():
         "objectnode.volume": ["OSSVolume"],
         "cmd": ["MasterDaemon", "MetaNodeDaemon", "DataNodeDaemon",
                 "BlobstoreDaemon", "ObjectNodeDaemon", "AuthNodeDaemon",
-                "HEARTBEAT_INTERVAL"],
+                "ConsoleDaemon", "ClientDaemon", "HEARTBEAT_INTERVAL"],
+        "console": ["Console"], "console.server": ["Console", "main"],
+        "client": ["Mount", "MountError"],
+        "client.fuse_ll": ["FuseServer", "fuse_available", "mount_volume", "main"],
+        "libsdk_boot": ["new_mount", "build_libcfs"],
+        "tools.fsck": ["Fsck", "FsckReport", "main"], "tools.authtool": ["main"],
+        "tools.autofs": ["parse_options", "map_entry_to_config", "main"],
+        "tools.fdstore": ["FdStore", "FdStoreClient"],
+        "tools.preload": ["Preloader", "PreloadStats", "main"],
+        "tools.localcluster": ["launch", "main"],
     }
     for mod, attrs in names.items():
         assert (PKG / (mod.replace(".", "/") + ".py")).exists() or (PKG / mod / "__init__.py").exists()
@@ -188,5 +200,30 @@ def test_slice_modules_exist_with_reference_names():
             assert hasattr(m, a), f"{mod}.{a}"
     from chubaofs_tpu_torch import cmd
 
-    assert sorted(cmd.ROLES) == ["authnode", "blobstore", "datanode", "master",
-                                 "metanode", "objectnode"]
+    assert sorted(cmd.ROLES) == ["authnode", "blobstore", "client", "console",
+                                 "datanode", "master", "metanode", "objectnode"]
+
+
+_IMPORT_QUIET = r"""
+import importlib, os, threading
+import torch  # its own import may open what it likes; measured after it
+fds = set(os.listdir("/proc/self/fd"))
+mods = ["console", "console.server", "client", "client.mount", "client.fuse_ll",
+        "libsdk_boot", "tools.fsck", "tools.authtool", "tools.autofs",
+        "tools.fdstore", "tools.preload", "tools.localcluster"]
+for m in mods:
+    importlib.import_module("chubaofs_tpu_torch." + m)
+from chubaofs_tpu_torch.client import fuse_ll
+print(threading.active_count(), fuse_ll._LIBC is None,
+      sorted(set(os.listdir("/proc/self/fd")) - fds))
+"""
+
+
+def test_slice_modules_do_no_work_at_import():
+    """The console, client, libsdk_boot and tool modules start no thread,
+    open no file or socket and load no library (libc for mount(2) is
+    loaded at the first mount) when they are imported."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_QUIET], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1", "True", "[]"], proc.stdout

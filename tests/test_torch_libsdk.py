@@ -1,9 +1,13 @@
-"""The cases of tests/test_libsdk.py against the port's daemons: the C
-drivers of native/libsdk, unchanged, against a master, metanodes and
-datanodes spawned as `python -m chubaofs_tpu_torch.cmd`. Every name and
-assertion as in the reference. The daemons' configs carry no platform key:
-these roles are host work. The cases run in tier-1 (the reference marks
-its twins slow); each takes a few seconds once native/libsdk is built.
+"""The cases of tests/test_libsdk.py against the port: the C programs of
+native/libsdk, built into the port's own libcfs (`libsdk_boot.build_libcfs`:
+the sources with the embedded boot module renamed to
+chubaofs_tpu_torch.libsdk_boot, built under build/libsdk_torch/, never in
+native/libsdk/build/), against a master, metanodes and datanodes spawned
+as `python -m chubaofs_tpu_torch.cmd`. So the client inside the C library
+is the port's. Every name and assertion as in the reference. The daemons'
+configs carry no platform key: these roles are host work. The cases run in
+tier-1 (the reference marks its twins slow); each takes a few seconds once
+the library is built.
 
 The reference file's docstring:
 
@@ -37,17 +41,21 @@ def _port_chaos_clean():
     t_chaos.reset()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIBSDK = os.path.join(REPO, "native", "libsdk")
 
 
-def _build(target: str):
+def _build(target: str) -> str:
+    """The port's libcfs build directory, holding `target`."""
+    from chubaofs_tpu_torch import libsdk_boot
+
     if shutil.which("make") is None:
         pytest.skip("no make")
     try:
-        subprocess.run(["make", "-C", LIBSDK, f"build/{target}"],
-                       check=True, capture_output=True, timeout=180)
+        out = libsdk_boot.build_libcfs()
     except (OSError, subprocess.SubprocessError) as e:
         pytest.skip(f"libcfs build unavailable: {e}")
+    assert os.path.commonpath([out, REPO]) == REPO
+    assert os.path.relpath(out, REPO).startswith(os.path.join("build", "libsdk_torch"))
+    return os.path.join(out, target)
 
 
 def _spawn(cfg: dict, tmp, name: str, env):
@@ -121,11 +129,11 @@ def _cluster(tmp_path, vol_name: str):
 
 
 def test_c_smoke_against_subprocess_cluster(tmp_path):
-    _build("cfs_smoke")
+    exe = _build("cfs_smoke")
     with _cluster(tmp_path, "libvol") as (master_addr, env):
         cfg = json.dumps({"masterAddr": master_addr, "volName": "libvol"})
         out = subprocess.run(
-            [os.path.join(LIBSDK, "build", "cfs_smoke"), cfg],
+            [exe, cfg],
             capture_output=True, timeout=120, env=env, text=True)
         assert out.returncode == 0, f"stdout={out.stdout} stderr={out.stderr}"
         assert "libcfs smoke ok" in out.stdout
@@ -135,11 +143,29 @@ def test_posix_soak_against_subprocess_cluster(tmp_path):
     """The external POSIX proof: a Python-free pthread process soaking
     create/pwrite/truncate/rename/link/unlink/readdir/rmdir against a real
     3-node cluster through libcfs.so (LTP `runltp -f fs` analog)."""
-    _build("cfs_posix_soak")
+    exe = _build("cfs_posix_soak")
     with _cluster(tmp_path, "soakvol") as (master_addr, env):
         cfg = json.dumps({"masterAddr": master_addr, "volName": "soakvol"})
         out = subprocess.run(
-            [os.path.join(LIBSDK, "build", "cfs_posix_soak"), cfg, "4", "3"],
+            [exe, cfg, "4", "3"],
             capture_output=True, timeout=300, env=env, text=True)
         assert out.returncode == 0, f"stdout={out.stdout} stderr={out.stderr}"
         assert "posix soak ok: 4 threads x 3 iters" in out.stdout
+
+
+def test_port_libcfs_embeds_the_port_boot_module():
+    """The port's library imports chubaofs_tpu_torch.libsdk_boot, and only
+    the one string differs from the reference's sources."""
+    from chubaofs_tpu_torch import libsdk_boot
+
+    lib = os.path.join(os.path.dirname(_build("libcfs.so")), "libcfs.so")
+    blob = open(lib, "rb").read()
+    assert b"chubaofs_tpu_torch.libsdk_boot\0" in blob
+    assert b"\0chubaofs_tpu.libsdk_boot\0" not in blob
+    srcs = libsdk_boot.port_sources()
+    for name in libsdk_boot.SOURCES:
+        ref = open(os.path.join(REPO, "native", "libsdk", name)).read()
+        assert srcs[name] == ref.replace('"chubaofs_tpu.libsdk_boot"',
+                                         '"chubaofs_tpu_torch.libsdk_boot"')
+    assert srcs["libcfs.cc"] != open(
+        os.path.join(REPO, "native", "libsdk", "libcfs.cc")).read()

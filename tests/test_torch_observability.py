@@ -5,8 +5,8 @@ Exposition-format conformance, cfs-stat diff, bounded track logs and
 carriers, slow-op log, and cross-hop traces over a MiniCluster(device=
 "cpu") and a real RPCServer, the metanode's packet-TCP hop
 (meta/service.py) over an FsCluster(device="cpu"), and an empty raft batch
-under a span. The FUSE and console cases wait for the ports of client/ and
-console/."""
+under a span, the port's console rollup, and the Mount (FUSE-facing) chain
+as one trace."""
 
 import json
 import os
@@ -358,3 +358,108 @@ def test_empty_propose_batch_under_span(tmp_path):
     lead = next(n for n in nodes.values() if n.is_leader(1))
     with trace.Span("caller"):
         assert lead.propose_batch(1, []) == []
+
+
+def test_http_metrics_endpoint_and_console_rollup():
+    """Every RPCServer serves /metrics (render_all) by default; the console
+    /api/metrics rolls scraped targets up with per-target markers."""
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools.cfsstat import scrape
+
+    exporter.registry("codec").counter("batches_total").add(0)
+    exporter.registry("raft").counter("drain_rounds_total").add(0)
+    srv = RPCServer(Router(), module="probe").start()
+    try:
+        body = scrape(srv.addr)
+        assert "cfs_codec_" in body and "cfs_raft_" in body
+        console = Console([srv.addr])
+        try:
+            roll = scrape(console.addr, "/api/metrics")
+            assert f"# == target {srv.addr} ==" in roll
+            assert "cfs_codec_" in roll
+        finally:
+            console.stop()
+    finally:
+        srv.stop()
+
+
+def test_fuse_create_chain_single_trace(fs_cluster):
+    from chubaofs_tpu_torch.client.mount import Mount, O_CREAT, O_RDWR
+
+    m = Mount(fs_cluster.client("obs"), volume="obs")
+    with trace.Span("probe") as span:
+        fd = m.open("/chain.txt", O_CREAT | O_RDWR)
+        m.write(fd, b"payload")
+        m.close(fd)
+    # FUSE -> SDK meta -> metanode -> raft, one trace id, ≥4 modules
+    assert {"fuse", "meta", "metanode", "raft"} <= span.modules()
+    m.umount()
+    text = exporter.render_all()
+    # raft drain counters with histogram buckets, per the acceptance bar
+    vals = parse_metrics(text)
+    assert vals["cfs_raft_drain_rounds_total"] >= 1
+    assert vals["cfs_raft_drain_entries_total"] >= 1
+    assert any(k.startswith("cfs_raft_drain_batch_bucket{") for k in vals)
+    # the hot write path crossed real datanode TCP dispatch
+    assert "cfs_datanode_" in text
+
+
+@pytest.mark.chaos
+def test_failpoint_delay_lands_in_slowop_log(fs_cluster, tmp_path):
+    from chubaofs_tpu_torch import chaos
+    from chubaofs_tpu_torch.client.mount import Mount, O_CREAT, O_WRONLY
+
+    log = configure_slowop(str(tmp_path / "slow"), threshold_ms=40.0)
+    m = Mount(fs_cluster.client("obs"), volume="obs")
+    chaos.arm("meta.submit", "delay(0.08)")
+    try:
+        fd = m.open("/slowop.txt", O_CREAT | O_WRONLY)
+        m.close(fd)
+    finally:
+        chaos.disarm("meta.submit")
+        m.umount()
+    recs = [r for r in log.records() if r["module"] == "fuse"]
+    assert recs, "delayed op must land in the slow-op audit log"
+    rec = recs[0]
+    assert rec["latency_ms"] >= 40.0
+    assert rec["trace_id"]
+    # the track log explains the latency hop by hop
+    assert "meta:" in rec["track"] and "fuse:" in rec["track"]
+    # structured record: json round-trips
+    assert json.loads(json.dumps(rec)) == rec
+    # the slowop role registry counted it
+    assert "cfs_slowop_slow_ops_total" in exporter.registry("slowop").render()
+    configure_slowop(threshold_ms=0.0)
+
+
+def test_fs_chain_spans_reach_sink(fs_cluster, tmp_path):
+    """FUSE/Mount -> meta submit -> metanode -> raft: the whole metadata
+    chain lands in the trace sink as one linked span tree with the raft
+    commit wait attributed as a named stage."""
+    from chubaofs_tpu_torch.client.mount import Mount, O_CREAT, O_RDWR
+    from chubaofs_tpu_torch.tools import cfstrace
+    from chubaofs_tpu_torch.utils import tracesink
+
+    snk = tracesink.configure(str(tmp_path / "sink"), sample=1.0)
+    try:
+        m = Mount(fs_cluster.client("obs"), volume="obs")
+        with trace.Span("fs.probe") as span:
+            fd = m.open("/sinkchain.txt", O_CREAT | O_RDWR)
+            m.write(fd, b"payload")
+            m.close(fd)
+        m.umount()
+        recs = snk.records(span.trace_id)
+        ops = {r["op"] for r in recs}
+        assert any(op.startswith("mount.") for op in ops), ops
+        assert any(op.startswith("meta.") for op in ops), ops
+        stage_names = {s[0] for r in recs for s in r.get("stages", [])}
+        assert "raft" in stage_names, stage_names
+        # the tree assembles: every meta span hangs off a mount span
+        roots, children = cfstrace.build_tree(recs)
+        assert any(children.get(r["span_id"]) for r in recs)
+        rep = cfstrace.critical_path(recs)
+        assert rep["root_op"] == "fs.probe" and rep["coverage"] > 0.2
+    finally:
+        tracesink.configure(sample=0.0)

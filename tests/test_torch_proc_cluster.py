@@ -21,6 +21,10 @@ Each case says what it compares.
     device", and leaves no process.
 (f) The host roles need no device: master, metanode, datanode, authnode and
     objectnode boot and serve where CUDA_VISIBLE_DEVICES="".
+(g) The objectnode has the gateway client loaded once it is up (read from
+    its /debug/runtime side-door), so no bucket create imports the codec
+    chain on the request path.
+(h) The console and client daemons hold no CUDA context after serving.
 
 Blobs stay at or under 1 MiB: the harness's blobstore daemon has 6 nodes x
 2 disks, and a larger blob selects EC(12,4), which needs 16 disks.
@@ -469,3 +473,95 @@ def test_host_roles_boot_without_a_device(tmp_path):
         assert all(p.poll() is None for p in c.procs.values())
     finally:
         c.close()
+
+
+def _runtime(addr: str) -> dict:
+    import json
+    import urllib.request
+
+    return json.loads(urllib.request.urlopen(
+        f"http://{addr}/debug/runtime", timeout=30).read())
+
+
+def test_objectnode_loads_gateway_client_at_boot(tmp_path):
+    """The objectnode builds its gateway client before it prints its boot
+    line, so no S3 request imports the codec chain. The master never
+    imports torch; the metanode (which purges cold data through the
+    gateway client) opens no CUDA context."""
+    c = ProcCluster(str(tmp_path), masters=1, metanodes=1, datanodes=0,
+                    blobstore=True, objectnode=True, device="cpu")
+    try:
+        assert c.boot_info("objectnode")["role"] == "objectnode"
+        rt = _runtime(c.boot_info("objectnode")["stats_addr"])
+        assert rt["pid"] == c.procs["objectnode"].pid
+        assert "chubaofs_tpu_torch.blobstore.gateway" in rt["modules"]
+        assert rt["cuda_initialized"] is False
+        rt = _runtime(c.master_addrs[0])
+        assert rt["pid"] == c.procs["master1"].pid
+        assert "torch" not in rt["modules"]
+        rt = _runtime(c.boot_info("metanode2")["stats_addr"])
+        assert rt["pid"] == c.procs["metanode2"].pid
+        assert rt["cuda_initialized"] is False
+    finally:
+        c.close()
+
+
+def test_console_and_client_daemons_leave_cuda_uninitialized(tmp_path):
+    """The console and client roles are host work: after serving they hold
+    no CUDA context. The client role mounts a cold volume (where the kernel
+    allows a FUSE mount) and has the gateway client loaded once it is up;
+    its file data is coded in the blobstore daemon."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from chubaofs_tpu_torch.client.fuse_ll import fuse_available
+
+    c = ProcCluster(str(tmp_path / "state"), masters=1, metanodes=3,
+                    datanodes=0, blobstore=True, device="cpu")
+    client = None
+    mp = tmp_path / "mnt"
+    try:
+        console = c.spawn_console(metrics_addrs=[c.access_addr])
+        assert c.boot_info("console")["role"] == "console"
+        roll = json.loads(scrape(console, "/api/health"))
+        assert {t["target"] for t in roll["targets"]} == {
+            *c.master_addrs, c.access_addr}
+        rt = _runtime(console)
+        assert rt["pid"] == c.procs["console"].pid
+        assert rt["cuda_initialized"] is False
+        assert "torch" not in rt["modules"]
+        if fuse_available():
+            c.client_master().create_volume("cold", cold=True)
+            mp.mkdir()
+            cfgp = tmp_path / "client.json"
+            cfgp.write_text(json.dumps({
+                "role": "client", "mountPoint": str(mp), "volName": "cold",
+                "masterAddrs": c.master_addrs,
+                "accessAddrs": [c.access_addr]}))
+            client = subprocess.Popen(
+                [sys.executable, "-m", "chubaofs_tpu_torch.cmd", "-c",
+                 str(cfgp)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, env=c.env)
+            boot = json.loads(client.stdout.readline().decode())
+            assert boot["role"] == "client" and boot["addr"] == str(mp)
+            rt = _runtime(boot["stats_addr"])
+            assert "chubaofs_tpu_torch.blobstore.gateway" in rt["modules"]
+            data = os.urandom(300_000)
+            _retry(lambda: (mp / "f.bin").write_bytes(data))
+            assert (mp / "f.bin").read_bytes() == data
+            rt = _runtime(boot["stats_addr"])
+            assert rt["pid"] == client.pid
+            assert rt["cuda_initialized"] is False
+    finally:
+        if client is not None:
+            client.terminate()
+            try:
+                client.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                client.kill()
+            assert client.returncode == 0
+        c.close()
+    with open("/proc/self/mounts") as f:
+        assert not any(line.split()[1] == str(mp) for line in f)

@@ -414,3 +414,40 @@ def test_merged_heartbeat_dethrones_stale_leader():
     # the deposed leader's merged beat draws a stale response (or the new
     # leader's beat carries the higher term) — either way it steps down
     assert run_until(net, lambda: not old.is_leader(7))
+
+
+def test_follower_commits_no_further_than_the_appended_entries():
+    """A follower whose log runs past the entries of a leader's append (a
+    deposed leader's uncommitted proposals, not yet overwritten) commits no
+    further than the append's last entry, whatever the leader's commit
+    index. Applying that tail would answer its proposer's waiter with a
+    success the cluster never committed: a write acknowledged, then lost.
+    The JAX package's core commits up to its own last entry and applies
+    the stale one."""
+    from chubaofs_tpu.raft.core import Entry as JEntry
+    from chubaofs_tpu.raft.core import Msg as JMsg
+    from chubaofs_tpu.raft.core import RaftCore as JRaftCore
+    from chubaofs_tpu_torch.raft.core import Entry, Msg, RaftCore
+
+    def run(core_cls, entry_cls, msg_cls):
+        # node 2 led term 2 and proposed index 3; node 1 won term 3 without it
+        f = core_cls(1, 2, [1, 2, 3])
+        f.term = 2
+        f.entries = [entry_cls(1, ("set", "a", 1)), entry_cls(1, ("set", "b", 2)),
+                     entry_cls(2, ("set", "stale", 3))]
+        f.step(msg_cls(type="append", group=1, src=1, dst=2, term=3, prev_index=2,
+                       prev_term=1, entries=[], commit=3))
+        _, committed = f.ready()
+        return f.commit, [(i, e.data) for i, e in committed]
+
+    assert run(RaftCore, Entry, Msg) == (2, [(1, ("set", "a", 1)), (2, ("set", "b", 2))])
+    assert run(JRaftCore, JEntry, JMsg)[1][-1] == (3, ("set", "stale", 3))
+    # the leader's next append overwrites the stale entry, and then it commits
+    f = RaftCore(1, 2, [1, 2, 3])
+    f.term = 2
+    f.entries = [Entry(1, ("set", "a", 1)), Entry(1, ("set", "b", 2)),
+                 Entry(2, ("set", "stale", 3))]
+    f.step(Msg(type="append", group=1, src=1, dst=2, term=3, prev_index=2, prev_term=1,
+               entries=[Entry(3, ("set", "c", 3))], commit=3))
+    _, committed = f.ready()
+    assert f.commit == 3 and committed[-1][1].data == ("set", "c", 3)

@@ -1,11 +1,11 @@
-"""The cases of tests/test_tracesink.py that need no console or FsCluster,
-run against the port on the CPU.
+"""The cases of tests/test_tracesink.py that need no FsCluster, run against
+the port on the CPU.
 
 Persisted span records, sampling bounds, slow-op forcing, the /traces HTTP
 side-door, and `cfs-trace` rendering/attribution, including the acceptance
 bar: a MiniCluster(device="cpu") PUT and GET whose critical-path reports
-attribute >=95% of measured wall time to named stages. The console
-collector case waits for the port of console/."""
+attribute >=95% of measured wall time to named stages, and the console's
+trace and slow-op rollups."""
 
 import io
 import json
@@ -335,3 +335,35 @@ def test_flamegraph_nests_contained_stages_without_double_count():
     assert float(lines["put;encode;codec.host"]) == pytest.approx(2.0)
     assert float(lines["put;encode;codec.device"]) == pytest.approx(6.0)
     assert sum(float(v) for v in lines.values()) == pytest.approx(10.0)
+
+
+def test_console_trace_and_slowops_rollup(sink, tmp_path):
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.client import RPCClient
+    from chubaofs_tpu_torch.rpc.router import Response, Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools.cfsstat import scrape
+
+    log = configure_slowop(str(tmp_path / "slow"), threshold_ms=1.0)
+    r = Router()
+    r.get("/ping", lambda req: Response(200, {}, b"pong"))
+    srv = RPCServer(r, module="rollsvc").start()
+    try:
+        with trace.Span("rollup.caller") as span:
+            RPCClient([srv.addr]).do("GET", "/ping")
+        record_slow_op("roll", "op", 0.5, span=span)
+        console = Console([srv.addr], metrics_addrs=["127.0.0.1:1"])
+        try:
+            out = json.loads(scrape(console.addr,
+                                    f"/api/trace?id={span.trace_id}"))
+            assert srv.addr in out["targets"]
+            assert "127.0.0.1:1" in out["unreachable"]
+            assert {rec["op"] for rec in out["spans"]} >= {"rollup.caller"}
+            slow = json.loads(scrape(console.addr, "/api/slowops"))
+            mine = [e for e in slow["slowops"] if e["module"] == "roll"]
+            assert mine and mine[0]["target"] == srv.addr
+        finally:
+            console.stop()
+    finally:
+        configure_slowop(threshold_ms=0.0)
+        log.close()
