@@ -155,10 +155,23 @@ result line:
             small files; (f) unmount and stop: every daemon exits 0, no mount
             is left. Codec batches (the blobstore daemon's /metrics) must
             grow in (b), (c) and (d).
+  13. the port's measuring and checking tools: (a) tools/kernel_ab.py's CLI
+            with its tile sweep (B1 and both B2 variants by slope timing over
+            CUDA events at the BASELINE configs, the sweep up to the largest
+            tile that fits 227 KiB): every GB/s reading positive and at most
+            the HBM bound, every kernel launched, beside phase 2's GB/s at
+            the same EC(12,4) shape; (b) the device-bound benches of
+            tools/perfbench.py (put pipeline, repair, repair codes, ranged
+            reads, cache zipf) on device="cuda" at their tier-1 tests' sizes,
+            each with that test's floors and a nonzero B1 launch count; (c)
+            cfs-capacity's clean arm (--seed 7 --duration 8 --rate 8
+            --metanodes 3 --datanodes 0) through its CLI with no --device: exit
+            0, at least 3 report frames, and of its daemons only the
+            blobstore daemon holds a CUDA context.
 
 Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c, each step
-of 10) is driven with every launch count set to 0 just before it and read
-just after; each step of 11 and 12 reads the blobstore daemon's codec
+of 10, 13a, each bench of 13b) is driven with every launch count set to 0
+just before it and read just after; each step of 11 and 12 reads the blobstore daemon's codec
 batches just before and just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
 JSON line (phase 8's steps, B1 launches, the card's name and power limit), a
 `soak` JSON line (phase 9's steps: wall seconds, rebuild seconds, shards and
@@ -173,7 +186,11 @@ batches per step, the pids that held CUDA contexts and their memory, the
 card's name and power limit), a `client` JSON line (phase 12's steps: wall
 seconds, the FUSE state, write and read MiB/s through the mount and through
 libcfs, codec batches per step, the degraded read's seconds, the card's name
-and power limit), a `kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
+and power limit), a `tools` JSON line (phase 13: kernel_ab's GB/s per kernel
+and config, its tile sweep and verdict, phase 2's GB/s at the same shape,
+each bench's numbers and launches, the capacity arm's exit code, frames and
+CUDA holders, wall seconds per step, the card's name and power limit), a
+`kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
 one-line result JSON.
 """
 
@@ -2389,6 +2406,159 @@ def phase_client(root: str, seed: int, device=None, files: int = 256, bigs: int 
     return {"steps_s": steps, "codec_batches": batches, **out}
 
 
+# -- phase 13: the port's measuring and checking tools on the card --------------
+
+# 13b: each device-bound bench of tools/perfbench.py at its tier-1 test's size
+# and with that test's floors (tests/test_torch_perfbench.py,
+# tests/test_torch_cache_plane.py), its codec on the card
+BENCHES = [
+    ("bench_put_pipeline", dict(blob_kb=16, n_puts=2, blob_counts=(1, 4), wire_ms=0),
+     lambda o: (o["put_overlap_ratio_avg"] > 0 and o["rpc_pool_hit_rate"] > 0.5
+                and all(o[k] > 0 for k in ("put_4b_pipe_pooled_mbps", "put_4b_serial_nopool_mbps",
+                                           "get_4b_pipe_pooled_mbps", "put_pipeline_speedup")))),
+    ("bench_repair", dict(n_nodes=6, disks_per_node=2, stripes=6, blob_kb=256, wire_ms=2.0,
+                          window=4),
+     lambda o: (o["repair_rows_serial"] > 0
+                and o["repair_rows_pipelined"] == o["repair_rows_serial"]
+                and all(o[k] > 0 for k in ("repair_stripes_s_serial", "repair_stripes_s_pipelined",
+                                           "repair_speedup", "repair_overlap_ratio",
+                                           "repair_bytes_per_shard")))),
+    ("bench_repair_codes", dict(stripes=4, blob_kb=60, wire_ms=2.0, window=4),
+     lambda o: (o["repair_codes_rows_rg"] > 0
+                and o["repair_codes_rows_rs"] == o["repair_codes_rows_rg"]
+                and o["repair_codes_beta_rows"] == o["repair_codes_rows_rg"]
+                and o["repair_codes_reduction"] >= 0.25
+                and o["repair_codes_amp_rg"] < o["repair_codes_amp_rs"]
+                and all(o[k] > 0 for k in ("repair_codes_stripes_s_rg", "repair_codes_stripes_s_rs",
+                                           "repair_codes_overlap_rg")))),
+    ("bench_ranged", dict(blob_mb=2, range_kbs=(64,), gets_per=2),
+     lambda o: (o["ranged_stripe_frac_64k"] < 0.25 and 0 < o["ranged_amp_64k"] < 2.0
+                and o["ranged_amp_degraded"] > 0 and o["ranged_decoded_frac_degraded"] < 0.25
+                and o["ranged_cached_hits"] > 0 and o["ranged_cached_backend_bytes"] == 0)),
+    ("bench_cache_zipf", dict(objects=10, obj_kb=32, gets=50, wire_ms=1.0),
+     lambda o: (o["cache_zipf_hit_ratio"] > 0.3
+                and o["cache_zipf_p99_ms_cached"] < o["cache_zipf_p99_ms_ec"]
+                and o["cache_zipf_speedup_p99"] > 1.0)),
+]
+
+
+def daemon_files(root: str) -> dict:
+    """{daemon name: the NVIDIA device nodes it holds} for every live daemon
+    of a ProcCluster under `root` (named by its config, <root>/<name>.json)."""
+    out = {}
+    for pid in cluster_pids(root):
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        cfg = next((a.decode() for a in cmd if a.startswith(root.encode())
+                    and a.endswith(b".json")), None)
+        if cfg:
+            out[Path(cfg).stem] = device_files(pid)
+    return out
+
+
+def phase_tools(root: str, zero_counts, read_counts, phase2: dict) -> dict:
+    """Phase 13: the port's measuring and checking tools on the card. (a)
+    tools/kernel_ab.py's CLI with its tile sweep: every reading positive and
+    at most the HBM bound, B1 and both B2 variants launched; (b) the
+    device-bound perfbench benches on device="cuda" with their tests' floors,
+    B1 launched by each; (c) cfs-capacity's clean arm through its CLI with
+    no --device, the blobstore daemon on the card and no other daemon
+    holding a CUDA context. Returns the `tools` line's fields."""
+    import contextlib
+
+    from chubaofs_tpu_torch.tools import capacity, kernel_ab, perfbench
+
+    out, wall = {}, {}
+
+    # 13a: kernel_ab
+    zero_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = kernel_ab.main(["--tile-sweep"])
+    counts = read_counts()
+    wall["13a_kernel_ab"] = time.perf_counter() - t0
+    check(rc == 0, f"kernel_ab exited {rc}")
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.strip()]
+    rows = {x["config"]: x for x in lines if "config" in x and "tile_k" not in x}
+    check(set(rows) == {c[0] for c in kernel_ab.CONFIGS}, f"kernel_ab rows: {sorted(rows)}")
+    for name, n, m, _, _ in kernel_ab.CONFIGS:
+        for key in ("fused_gbps", "pipelined_gbps", "pipelined_static_gbps"):
+            gbps = rows[name].get(key, 0)
+            # each reading counts the n data rows; the card moves n + m per stripe
+            check(0 < gbps * (n + m) / n <= HBM_BYTES_PER_S / 1e9,
+                  f"kernel_ab {name} {key} = {gbps} GB/s outside (0, HBM bound]")
+    sweep = [x for x in lines if x.get("config") == "ec12p4_tile_sweep"]
+    check([x["tile_k"] for x in sweep] == kernel_ab.sweep_tiles(4, 12),
+          f"kernel_ab sweep tiles: {[x['tile_k'] for x in sweep]}")
+    check(all(0 < x["gbps"] * 16 / 12 <= HBM_BYTES_PER_S / 1e9 for x in sweep),
+          f"kernel_ab sweep outside (0, HBM bound]: {sweep}")
+    check(all(v > 0 for v in counts.values()), f"kernel_ab left a kernel unlaunched: {counts}")
+    verdict = lines[-1].get("verdict", {})
+    check(set(verdict) == set(rows), f"kernel_ab verdict: {lines[-1]}")
+    out["kernel_ab"] = {"rows": rows, "tile_sweep": {x["tile_k"]: x["gbps"] for x in sweep},
+                        "verdict": verdict, "launches": counts,
+                        "phase2_ec12p4_gbps": phase2}
+    log(f"kernel_ab verdict {verdict}; ec12p4 GB/s {rows['ec12p4_8mib']} "
+        f"(phase 2 at the same shape: {phase2})")
+
+    # 13b: perfbench's device-bound benches on the card
+    out["perfbench"] = {}
+    for name, kw, floors in BENCHES:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = getattr(perfbench, name)(os.path.join(root, name), device="cuda", **kw)
+        counts = read_counts()
+        wall[f"13b_{name}"] = time.perf_counter() - t0
+        check(floors(res), f"{name}: a floor of its test failed: {res}")
+        check(counts["gf_matmul"] > 0, f"{name} launched no gf_matmul kernel: {counts}")
+        out["perfbench"][name] = {**res, "launches": counts}
+        log(f"perfbench {name} " + json.dumps(out["perfbench"][name]))
+
+    # 13c: the cfs-capacity clean arm, the blobstore daemon on the card
+    cap_root = os.path.join(root, "capacity")
+    report = os.path.join(root, "capacity.jsonl")
+    readings, result = [], {}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(1.0):
+            seen = daemon_files(cap_root)
+            if seen:
+                readings.append(seen)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    t0 = time.perf_counter()
+    sampler.start()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result["rc"] = capacity.main(["--seed", "7", "--duration", "8", "--rate", "8",
+                                          "--metanodes", "3", "--datanodes", "0",
+                                          "--root", cap_root, "--out", report, "--json"])
+    finally:
+        done.set()
+        sampler.join()
+    wall["13c_capacity"] = time.perf_counter() - t0
+    frames = [json.loads(x) for x in open(report)] if os.path.exists(report) else []
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(result["rc"] == 0, f"cfs-capacity clean arm exited {result['rc']}: "
+          f"{json.dumps(summary)[-2000:]}")
+    check(len(frames) >= 3, f"cfs-capacity archived {len(frames)} frames")
+    check(readings, "no reading of the capacity cluster's daemons")
+    check_contexts(readings)
+    check(not cluster_pids(cap_root), f"capacity processes left: {cluster_pids(cap_root)}")
+    out["capacity"] = {"rc": result["rc"], "frames": len(frames),
+                       "verdict": summary.get("verdict"), "ops_ok": summary.get("ops_ok"),
+                       "ops_planned": summary.get("ops_planned"),
+                       "cuda_holders": sorted({n for r in readings for n, f in r.items() if f}),
+                       "readings": len(readings)}
+    out["wall_s"] = wall
+    return out
+
+
 def urllib_get(addr: str, path: str) -> str:
     import urllib.request
 
@@ -2611,6 +2781,14 @@ def main(argv: list[str] | None = None) -> int:
         client_res = phase_client(os.path.join(tmp, "p12"), args.seed)
         wall["12_client"] = time.perf_counter() - t0
 
+        # phase 13: the port's measuring and checking tools, B1 and B2
+        t0 = time.perf_counter()
+        ec12 = next(r for r in records if r["case"] == "ec12p4_parity")
+        phase2 = {name: ec12["b"] * ec12["n"] * ec12["k"] / (kr["ms"] * 1e-3) / 1e9
+                  for name, kr in ec12["kernels"].items()}
+        tools_res = phase_tools(os.path.join(tmp, "p13"), zero_counts, read_counts, phase2)
+        wall["13_tools"] = time.perf_counter() - t0
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -2644,6 +2822,9 @@ def main(argv: list[str] | None = None) -> int:
     log("client " + json.dumps({"seconds": wall["12_client"], **client_res,
                                 "device": torch.cuda.get_device_name(0),
                                 "nvidia_smi": nvidia_smi_line()}))
+    log("tools " + json.dumps({"seconds": wall["13_tools"], **tools_res,
+                               "device": torch.cuda.get_device_name(0),
+                               "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": line}))

@@ -73,6 +73,7 @@ BUILD_INFO: dict = {}
 _lib = None
 _lib_lock = threading.Lock()
 _sms: dict[int, int] = {}
+_sms_lock = threading.Lock()
 
 _PLAN_CACHE_MAX = 256
 _plans: collections.OrderedDict = collections.OrderedDict()
@@ -219,9 +220,11 @@ def align_of(k: int, *ptrs: int) -> int:
 
 def _sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
+    # the first launches on a device may come from two threads at once
+    with _sms_lock:
+        if idx not in _sms:
+            _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        return _sms[idx]
 
 
 # -- the wrapper --------------------------------------------------------------------

@@ -21,7 +21,9 @@ tensors live on the caller's device:
     tensor-core kernel (ops/cuda_gf_pipe.py), when CFS_GF_PIPELINED is "1"
     (dynamic slots) or "static" (static slots), read on every call as the
     JAX package's dispatcher reads it;
-  * a CPU tensor goes to the plain PyTorch version, gf_matmul_bytes, whatever
+  * a CPU tensor goes to gf_matmul_tables, a plain PyTorch version that looks
+    each byte up in a 256-entry table per 8x8 block (the same bytes as
+    gf_matmul_bytes, quicker on the host than its bit lowering), whatever
     CFS_GF_PIPELINED says (the JAX package too takes the kernels off the TPU).
 
 Batching: all kernels take (..., n, k) with arbitrary leading batch dims; the
@@ -113,9 +115,43 @@ def gf_matmul_bytes(mat_bits, shards: torch.Tensor) -> torch.Tensor:
     return pack_bits(acc.to(torch.int32) & 1)
 
 
+def byte_tables(mat_bits) -> torch.Tensor:
+    """(r, n, 256) uint8: entry [i, j, v] is the 8x8 GF(2) block (i, j) of an
+    (8r, 8n) bit matrix applied to byte v. Any GF(2) matrix has them."""
+    mat = mat_tensor(mat_bits).to(torch.int32)
+    r, n = mat.shape[0] // BITS, mat.shape[1] // BITS
+    pos = torch.arange(BITS, dtype=torch.int32)
+    vbits = (torch.arange(256, dtype=torch.int32)[None, :] >> pos[:, None]) & 1
+    blocks = mat.reshape(r, BITS, n, BITS).permute(0, 2, 1, 3)
+    out_bits = torch.matmul(blocks, vbits) & 1  # (r, n, 8, 256)
+    return (out_bits << pos[:, None]).sum(dim=-2).to(torch.uint8)
+
+
+def gf_matmul_tables(mat_bits, shards: torch.Tensor) -> torch.Tensor:
+    """The plain version by table lookup, the host's path: out row i is the
+    XOR over input rows j of byte_tables[i, j] gathered at row j's bytes.
+    Equal to gf_matmul_bytes byte for byte; on any device."""
+    tabs = byte_tables(mat_bits).to(shards.device)
+    r, n = tabs.shape[:2]
+    lead, k = shards.shape[:-2], shards.shape[-1]
+    if shards.shape[-2] != n:
+        raise ValueError(f"matrix {tuple(mat_bits.shape)} does not match "
+                         f"shards {tuple(shards.shape)}")
+    x = shards.reshape(-1, n, k)
+    b = x.shape[0]
+    out = torch.zeros((b, r, k), dtype=torch.uint8, device=shards.device)
+    if r and b and k:
+        idx = x.to(torch.int64)
+        for j in range(n):
+            out ^= torch.gather(tabs[:, j, :].expand(b, r, 256), 2,
+                                idx[:, j:j + 1, :].expand(b, r, k))
+    return out.reshape(*lead, r, k)
+
+
 def gf_matmul_dispatch(mat_bits, shards: torch.Tensor) -> torch.Tensor:
     """A kernel for a CUDA tensor (B2 when CFS_GF_PIPELINED is "1" or
-    "static", else B1), the plain version for a CPU tensor."""
+    "static", else B1), the plain version by table lookup for a CPU
+    tensor."""
     if shards.device.type == "cuda":
         pipe = os.environ.get("CFS_GF_PIPELINED", "")
         if pipe in ("1", "static"):
@@ -123,7 +159,7 @@ def gf_matmul_dispatch(mat_bits, shards: torch.Tensor) -> torch.Tensor:
                 mat_bits, shards, static_slots=pipe == "static")
         return cuda_gf.gf_matmul(mat_bits, shards)
     if shards.device.type == "cpu":
-        return gf_matmul_bytes(mat_bits, shards)
+        return gf_matmul_tables(mat_bits, shards)
     raise ValueError(f"no GF(2^8) matmul for device {shards.device}")
 
 

@@ -2,8 +2,8 @@
 
 Tiered read-cache plane: BlobCache keying + invalidation, access-layer
 integration, Replica3 hot-tier promotion/demotion, the SLO and cfs-top
-surfaces, and the cache soak smoke, on MiniCluster(device="cpu"). The
-zipfian bench floor waits for the port of tools/perfbench.py."""
+surfaces, the zipfian bench floor (the port's tools/perfbench.py) and the
+cache soak smoke, on MiniCluster(device="cpu")."""
 
 import os
 import zlib
@@ -343,6 +343,20 @@ def test_cache_metrics_families_render(cluster):
 
 
 # -- bench + soak smokes (tier-1 floors) ---------------------------------------
+
+
+def test_bench_cache_zipf_smoke_floor(tmp_path):
+    """Tier-1 cache gate: the zipfian A/B at smoke size must realize a
+    NONZERO hit ratio on the warm pass and beat the EC arm's p99 (crc-
+    verified internally). The full-size acceptance numbers live in PERF.md —
+    CI co-tenant noise keeps hard latency floors out of tier-1."""
+    from chubaofs_tpu_torch.tools.perfbench import bench_cache_zipf
+
+    out = bench_cache_zipf(str(tmp_path), objects=10, obj_kb=32, gets=50,
+                           wire_ms=1.0, device=CPU)
+    assert out["cache_zipf_hit_ratio"] > 0.3, out
+    assert out["cache_zipf_p99_ms_cached"] < out["cache_zipf_p99_ms_ec"], out
+    assert out["cache_zipf_speedup_p99"] > 1.0, out
 
 
 def test_cache_soak_smoke(tmp_path):

@@ -4,9 +4,9 @@ against the port on the CPU.
 Event journal (emit, query, cursor, ring + rotor), span-trace joins, the
 alert rules (gauge, counter rate, event seen, SLO failing), silences,
 clustermgr and SLO emitters, the RPCServer's event/alert routes, and the
-cfs-top UP/ALERTS columns, the console rollup and the cfs-events CLI over
-the port's console. The capacity collector case waits for the port of
-tools/capacity.py."""
+cfs-top UP/ALERTS columns, the console rollup, the cfs-events CLI over
+the port's console, and the capacity collector (the port's
+tools/capacity.py) archiving the timeline."""
 
 import io
 import json
@@ -527,3 +527,37 @@ def test_cfsevents_cli_timeline_alerts_and_correlate(journal):
         console.stop()
         srv.stop()
         alerts.deactivate()
+
+
+# -- capacity collector archives the timeline ----------------------------------
+
+
+def test_capacity_collector_archives_events_and_alerts(tmp_path, journal):
+    from chubaofs_tpu_torch.console.server import Console
+    from chubaofs_tpu_torch.rpc.router import Router
+    from chubaofs_tpu_torch.rpc.server import RPCServer
+    from chubaofs_tpu_torch.tools.capacity import Collector
+
+    srv = RPCServer(Router(), module="capev").start()
+    console = Console([srv.addr])
+    report = str(tmp_path / "cap.jsonl")
+    col = Collector(report, console=console.addr, interval=0.3)
+    col.start()
+    try:
+        time.sleep(0.5)
+        events.emit("chaos_inject", "warning", entity="node_kill",
+                    detail={"plan": "t"})
+        time.sleep(0.6)
+    finally:
+        col.stop()
+        console.stop()
+        srv.stop()
+        alerts.deactivate()
+    frames = [json.loads(line) for line in open(report)]
+    assert frames, "collector archived no frames"
+    assert all("events" in f and "alerts" in f for f in frames)
+    archived = [e for f in frames for e in (f["events"] or ())]
+    injects = [e for e in archived if e["type"] == "chaos_inject"]
+    assert len(injects) == 1, (
+        "cursor paging must archive each event exactly once")
+    assert "alerts_fired" in col.verdict()

@@ -155,6 +155,21 @@ def test_gf_matmul_port_vs_jax_and_pallas(name, lead, k):
         assert np.array_equal(got.reshape(-1, r, k)[0], j_gf256.gf_matmul(mat, flat))
 
 
+@pytest.mark.parametrize("r,n,lead,k", [(4, 12, (3,), 1000), (1, 1, (), 17),
+                                         (6, 9, (2, 2), 256), (0, 5, (2,), 64)])
+def test_gf_matmul_tables_on_any_gf2_matrix(r, n, lead, k):
+    """The host's table-lookup version takes any (8r, 8n) GF(2) matrix, an
+    expansion or not, and gives the plain bit lowering's bytes and the JAX
+    package's."""
+    rng = np.random.default_rng(r * 100 + n)
+    bits = rng.integers(0, 2, (8 * r, 8 * n), dtype=np.int8)
+    data = rng.integers(0, 256, (*lead, n, k), dtype=np.uint8)
+    got = _np(t_rs.gf_matmul_tables(bits, torch.from_numpy(data)))
+    assert got.shape == (*lead, r, k)
+    assert np.array_equal(got, _np(t_rs.gf_matmul_bytes(bits, torch.from_numpy(data))))
+    assert np.array_equal(got, np.asarray(j_rs.gf_matmul_bytes(bits, data)))
+
+
 def test_hostbatch_matches_jax(rng):
     jk = j_rs.get_kernel(12, 4)
     host = rng.integers(0, 256, (6, 12, 200), dtype=np.uint8)
