@@ -168,11 +168,21 @@ result line:
             --metanodes 3 --datanodes 0) through its CLI with no --device: exit
             0, at least 3 report frames, and of its daemons only the
             blobstore daemon holds a CUDA context.
+  14. the BASELINE bench: `python -m chubaofs_tpu_torch.bench` as a child
+            process, as a user runs it: exit 0 and one JSON line holding
+            every BASELINE config key (EC(4,2), EC(6,3) and EC(12,4) encode,
+            EC(12,4) encode on each B2 variant, the 1-missing reconstruct,
+            the 3-missing bulk repair in GB/s and stripes/s, the EC(20,4)+L2
+            encode), each positive and at most its HBM ceiling (3.35 TB/s x
+            data bytes / bytes moved), the three EC(12,4) encode figures
+            within 10% of phase 13a's kernel_ab readings of the same kernels
+            at the same shape, and every kernel launched in the child.
 
 Every path (3+4, 5, each pass of 6, 7a, 8, 9a, 9b, each soak of 9c, each step
 of 10, 13a, each bench of 13b) is driven with every launch count set to 0
 just before it and read just after; each step of 11 and 12 reads the blobstore daemon's codec
-batches just before and just after. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
+batches just before and just after; phase 14's child counts its own
+launches from 0 and reports them in its line. Output ends with a `daemon` JSON line (phase 7's steps), a `mesh`
 JSON line (phase 8's steps, B1 launches, the card's name and power limit), a
 `soak` JSON line (phase 9's steps: wall seconds, rebuild seconds, shards and
 shards/s, bytes per repaired shard, download/decode overlap, the top three
@@ -190,7 +200,9 @@ and power limit), a `tools` JSON line (phase 13: kernel_ab's GB/s per kernel
 and config, its tile sweep and verdict, phase 2's GB/s at the same shape,
 each bench's numbers and launches, the capacity arm's exit code, frames and
 CUDA holders, wall seconds per step, the card's name and power limit), a
-`kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
+`bench` JSON line (phase 14: the bench's line, its wall seconds, each key's
+HBM ceiling, the EC(12,4) figures over kernel_ab's, the card's name and
+power limit), a `kernels` JSON line, the card's name and power limit as nvidia-smi reports them, and the
 one-line result JSON.
 """
 
@@ -2559,6 +2571,64 @@ def phase_tools(root: str, zero_counts, read_counts, phase2: dict) -> dict:
     return out
 
 
+# -- phase 14: the BASELINE bench, as a user runs it ----------------------------------
+
+# each GB/s key of the bench's line: (data rows, rows moved) per stripe, so
+# its HBM ceiling in GB/s of data is 3.35 TB/s x data / moved
+BENCH_GBPS = {
+    "ec4p2_encode_1mib_gbps": (4, 6),
+    "ec6p3_encode_4mib_gbps": (6, 9),
+    "ec12p4_encode_8mib_gbps": (12, 16),
+    "ec12p4_encode_8mib_pipe_dyn_gbps": (12, 16),
+    "ec12p4_encode_8mib_pipe_static_gbps": (12, 16),
+    "ec12p4_reconstruct_1miss_gbps": (12, 13),
+    "ec12p4_bulk_repair_3miss_gbps": (12, 15),
+    "ec20p4l2_encode_16mib_gbps": (20, 26),
+}
+BENCH_STRIPES = "ec12p4_bulk_repair_3miss_stripes_per_sec"  # 15 shards moved a stripe
+# the kernel_ab reading (phase 13a, EC(12,4) x16, k = 699,136) each bench
+# EC(12,4) encode key times again, by the same method at the same shape
+BENCH_VS_AB = {"ec12p4_encode_8mib_gbps": "fused_gbps",
+               "ec12p4_encode_8mib_pipe_dyn_gbps": "pipelined_gbps",
+               "ec12p4_encode_8mib_pipe_static_gbps": "pipelined_static_gbps"}
+
+
+def phase_bench(root: str, ab_ec12: dict) -> dict:
+    """Phase 14: `python -m chubaofs_tpu_torch.bench` in a child process.
+    Returns the `bench` line's fields."""
+    os.makedirs(root, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k != "CFS_GF_PIPELINED"}
+    env["CFS_METRICS_DUMP"] = os.path.join(root, "BENCH_metrics.prom")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "chubaofs_tpu_torch.bench"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"bench: {line}")
+    lines = [x for x in proc.stdout.splitlines() if x.strip()]
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}: {proc.stdout[-2000:]}")
+    check(len(lines) == 1, f"the bench printed {len(lines)} lines: {proc.stdout[-2000:]}")
+    res = json.loads(lines[0])
+    cfg = res.get("configs", {})
+    keys = list(BENCH_GBPS) + [BENCH_STRIPES]
+    check(all(cfg.get(key, 0) > 0 for key in keys), f"bench keys missing or not positive: {cfg}")
+    ceilings = {key: HBM_BYTES_PER_S / 1e9 * d / m for key, (d, m) in BENCH_GBPS.items()}
+    k12 = -(-8 * MiB // 12 // 128) * 128
+    ceilings[BENCH_STRIPES] = HBM_BYTES_PER_S / (15 * k12)
+    over = {key: (cfg[key], c) for key, c in ceilings.items() if cfg[key] > c}
+    check(not over, f"bench figures over their HBM ceilings: {over}")
+    vs_ab = {key: cfg[key] / ab_ec12[ab] for key, ab in BENCH_VS_AB.items()}
+    check(all(abs(r - 1.0) <= 0.10 for r in vs_ab.values()),
+          f"bench EC(12,4) encode off kernel_ab's by more than 10%: {vs_ab}")
+    check(res.get("value") == cfg["ec12p4_encode_8mib_gbps"], f"bench headline: {res}")
+    check(res.get("device") == torch.cuda.get_device_name(0), f"bench device: {res.get('device')}")
+    launches = res.get("launches", {})
+    check(set(launches) == {"gf_matmul", "gf_matmul_pipe", "gf_matmul_pipe_static"}
+          and all(v > 0 for v in launches.values()),
+          f"the bench left a kernel unlaunched: {launches}")
+    return {"line": res, "wall_s": wall, "ceilings": ceilings, "vs_kernel_ab": vs_ab}
+
+
 def urllib_get(addr: str, path: str) -> str:
     import urllib.request
 
@@ -2789,6 +2859,11 @@ def main(argv: list[str] | None = None) -> int:
         tools_res = phase_tools(os.path.join(tmp, "p13"), zero_counts, read_counts, phase2)
         wall["13_tools"] = time.perf_counter() - t0
 
+        # phase 14: the BASELINE bench as a child process, B1 and B2
+        bench_res = phase_bench(os.path.join(tmp, "p14"),
+                                tools_res["kernel_ab"]["rows"]["ec12p4_8mib"])
+        wall["14_bench"] = bench_res["wall_s"]
+
     replaces = {"gf_matmul": ("chubaofs_tpu_torch/ops/csrc/gf_matmul.cu", "chubaofs_tpu/ops/pallas_gf.py:85"),
                 "gf_matmul_pipe": ("chubaofs_tpu_torch/ops/csrc/gf_matmul_pipe.cu",
                                    "chubaofs_tpu/ops/pallas_gf_pipe.py:125"),
@@ -2824,6 +2899,8 @@ def main(argv: list[str] | None = None) -> int:
                                 "nvidia_smi": nvidia_smi_line()}))
     log("tools " + json.dumps({"seconds": wall["13_tools"], **tools_res,
                                "device": torch.cuda.get_device_name(0),
+                               "nvidia_smi": nvidia_smi_line()}))
+    log("bench " + json.dumps({**bench_res, "device": torch.cuda.get_device_name(0),
                                "nvidia_smi": nvidia_smi_line()}))
     log("wall_s " + json.dumps(wall))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,10 @@
 """A/B harness: B1 (table-lookup kernel) vs B2 (pipelined tensor-core kernel,
 dynamic and static slots) on the card.
 
-Runs the benchmark method (slope timing over CUDA events, median of passes,
-HBM floor) over the BASELINE configs for every kernel and prints one JSON
-line per config plus a final verdict line. Used to decide whether
+Runs the benchmark method of chubaofs_tpu_torch/bench.py (its CUDA probe,
+then slope timing over CUDA events, median of passes, HBM floor) over the
+BASELINE configs for every kernel and prints one JSON line per config plus
+a final verdict line. Used to decide whether
 CFS_GF_PIPELINED should become the default: the answer is measured on the
 card, so the tool exists instead of a guess.
 
@@ -23,7 +24,10 @@ import sys
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+from chubaofs_tpu_torch.bench import (  # noqa: F401 (slope: the timing core)
+    H100, HBM_PEAK, _resolve_device, hbm_floor, log, slope, throughput)
+
+HBM_BYTES_PER_S = HBM_PEAK[H100]
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may opt into
 MiB = 1 << 20
 
@@ -32,59 +36,6 @@ CONFIGS = [
     ("ec6p3_4mib", 6, 3, 4 * MiB, 24),
     ("ec12p4_8mib", 12, 4, 8 * MiB, 16),
 ]
-
-
-def log(*a):
-    print(*a, file=sys.stderr, flush=True)
-
-
-def hbm_floor(total_bytes_moved: int) -> float:
-    """Physical seconds floor: moving the op's bytes at the card's HBM peak."""
-    return total_bytes_moved / HBM_BYTES_PER_S
-
-
-def slope(timed, n1=10, n2=40, runs=3, passes=3, floor: float = 0.0) -> float:
-    """Seconds per call from `timed(iters)`, the seconds `iters` back-to-back
-    calls take: the median across `passes` passes, each the median of `runs`
-    slopes (timed(n2) - timed(n1)) / (n2 - n1), so constant costs cancel.
-
-    `floor` is the physical lower bound on seconds per call (HBM peak): a
-    pass below it is a corrupted measurement and is discarded; if nothing
-    plausible remains this raises with the raw slopes rather than report an
-    impossible number."""
-    timed(2)  # build + warm
-    plausible: list[float] = []
-    raw: list[float] = []
-    for _ in range(passes):
-        # median of the deltas: one stall in either leg must not deflate the
-        # subtraction (a min would lock in a corrupted run)
-        deltas = sorted(timed(n2) - timed(n1) for _ in range(runs))
-        per_iter = deltas[len(deltas) // 2] / (n2 - n1)
-        raw.append(per_iter)
-        if per_iter >= max(floor, 0.0) and per_iter > 0:
-            plausible.append(per_iter)
-    if not plausible:
-        raise RuntimeError(f"unstable timing: no plausible pass; slopes={raw}")
-    plausible.sort()
-    return plausible[len(plausible) // 2]
-
-
-def throughput(fn, args, floor: float = 0.0, **kw) -> float:
-    """Seconds per call of fn(*args) on the current CUDA stream: `slope`
-    over CUDA event times."""
-    import torch
-
-    def timed(iters: int) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn(*args)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    return slope(timed, floor=floor, **kw)
 
 
 def sweep_tiles(r: int, n: int) -> list[int]:
@@ -140,6 +91,8 @@ def main(argv=None) -> int:
         print(f"cfs-kernel-ab: device {args.device!r} is not a CUDA device; "
               "the kernels it times run only on the card", file=sys.stderr)
         return 2
+    # bench.py's watchdog probe, then its timing machinery
+    dev = _resolve_device(device=dev)
     torch.cuda.set_device(dev)
     log(f"device={torch.cuda.get_device_name(dev)}")
     rng = np.random.default_rng(0)
@@ -157,7 +110,7 @@ def main(argv=None) -> int:
         mat = rs.get_kernel(n, m, dev).parity_bits
         data = torch.from_numpy(
             rng.integers(0, 256, (batch, n, k), dtype=np.uint8)).to(dev)
-        floor = hbm_floor(batch * (n + m) * k)
+        floor = hbm_floor(batch * (n + m) * k, dev)
         res: dict[str, float] = {}
         for label, fn in kernels.items():
             per = throughput(fn, (mat, data), floor=floor)

@@ -116,28 +116,42 @@ class NativeKV:
             raise KVError(f"open {path}: {err.value.decode()}")
         self._lock = SanitizedLock(name="kvstore.native")
 
+    # Every call holds self._lock: close() then waits for the call in flight
+    # and a call after close() raises, where either would otherwise hand the
+    # engine a freed or null handle and crash the process. The engine takes
+    # its own mutex on every call, so this serialises nothing more.
+
+    def _handle(self):
+        if not self._h:
+            raise KVError("store closed")
+        return self._h
+
     def _check(self, rc: int):
         if rc < 0:
             raise KVError(self._lib.cfskv_errmsg(self._h).decode())
 
     def put(self, key: bytes, value: bytes) -> None:
-        self._check(self._lib.cfskv_put(self._h, key, len(key), value, len(value)))
+        with self._lock:
+            self._check(self._lib.cfskv_put(self._handle(), key, len(key),
+                                            value, len(value)))
 
     def get(self, key: bytes) -> bytes | None:
         out = ctypes.POINTER(ctypes.c_char)()
         n = ctypes.c_int()
-        rc = self._lib.cfskv_get(self._h, key, len(key),
-                                 ctypes.byref(out), ctypes.byref(n))
-        if rc == 1:
-            return None
-        self._check(rc)
+        with self._lock:
+            rc = self._lib.cfskv_get(self._handle(), key, len(key),
+                                     ctypes.byref(out), ctypes.byref(n))
+            if rc == 1:
+                return None
+            self._check(rc)
         try:
             return ctypes.string_at(out, n.value)
         finally:
             self._lib.cfskv_free(out)
 
     def delete(self, key: bytes) -> None:
-        self._check(self._lib.cfskv_del(self._h, key, len(key)))
+        with self._lock:
+            self._check(self._lib.cfskv_del(self._handle(), key, len(key)))
 
     def write_batch(self, puts=(), deletes=()) -> None:
         """Crash-atomic batch (gorocksdb WriteBatch analog)."""
@@ -151,16 +165,18 @@ class NativeKV:
             count += 1
         if not count:
             return
-        self._check(self._lib.cfskv_batch(self._h, bytes(buf), len(buf), count))
+        with self._lock:
+            self._check(self._lib.cfskv_batch(self._handle(), bytes(buf),
+                                              len(buf), count))
 
     def scan(self, prefix: bytes = b"", start: bytes = b"",
              limit: int = 1 << 30) -> list[tuple[bytes, bytes]]:
         out = ctypes.POINTER(ctypes.c_char)()
         n = ctypes.c_int()
-        rc = self._lib.cfskv_scan(self._h, prefix, len(prefix), start,
-                                  len(start), limit,
-                                  ctypes.byref(out), ctypes.byref(n))
-        self._check(rc)
+        with self._lock:
+            self._check(self._lib.cfskv_scan(self._handle(), prefix, len(prefix),
+                                             start, len(start), limit,
+                                             ctypes.byref(out), ctypes.byref(n)))
         try:
             blob = ctypes.string_at(out, n.value)
         finally:
@@ -174,13 +190,16 @@ class NativeKV:
         return pairs
 
     def count(self) -> int:
-        return self._lib.cfskv_count(self._h)
+        with self._lock:
+            return self._lib.cfskv_count(self._handle())
 
     def compact(self) -> None:
-        self._check(self._lib.cfskv_compact(self._h))
+        with self._lock:
+            self._check(self._lib.cfskv_compact(self._handle()))
 
     def checkpoint(self, out_dir: str) -> None:
-        self._check(self._lib.cfskv_checkpoint(self._h, out_dir.encode()))
+        with self._lock:
+            self._check(self._lib.cfskv_checkpoint(self._handle(), out_dir.encode()))
 
     def close(self) -> None:
         with self._lock:

@@ -5,6 +5,7 @@ fallback: API, atomicity, recovery, cross-engine file compatibility."""
 
 import os
 import struct
+import threading
 
 import pytest
 import torch
@@ -173,4 +174,69 @@ def test_double_open_refused(engine, tmp_path):
         ctor(str(tmp_path / "db"))
     db.close()
     db2 = _mk(engine, tmp_path / "db")  # released on close
+    db2.close()
+
+
+# -- the native handle's lifetime ------------------------------------------------
+# A blobnode shard write that a test or a daemon releases just before it
+# closes its cluster reaches the store while the store closes. The engine
+# frees its handle on close, so a call that reaches it then must wait for, or
+# be refused by, the close: it may never run on freed memory.
+
+
+def test_native_calls_after_close_raise(tmp_path):
+    db = _mk("native", tmp_path / "db")
+    db.put(b"k", b"v")
+    db.close()
+    db.close()  # a second close is a no-op
+    for call in (lambda: db.put(b"k", b"v"), lambda: db.get(b"k"),
+                 lambda: db.delete(b"k"), lambda: db.write_batch([(b"a", b"b")]),
+                 lambda: db.scan(), db.count, db.compact,
+                 lambda: db.checkpoint(str(tmp_path / "ck"))):
+        with pytest.raises(KVError, match="closed"):
+            call()
+
+
+class _HeldPut:
+    """The engine's functions, with cfskv_put held until `release` is set;
+    records the order in which puts finish and the handle is closed."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.order: list[str] = []
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def cfskv_put(self, *a):
+        self.entered.set()
+        self.release.wait(30)
+        rc = self._lib.cfskv_put(*a)
+        self.order.append("put")
+        return rc
+
+    def cfskv_close(self, h):
+        self.order.append("close")
+        self._lib.cfskv_close(h)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def test_native_close_waits_for_call_in_flight(tmp_path):
+    db = _mk("native", tmp_path / "db")
+    held = db._lib = _HeldPut(db._lib)
+    writer = threading.Thread(target=db.put, args=(b"k", b"v"))
+    writer.start()
+    assert held.entered.wait(30)
+    closer = threading.Thread(target=db.close)
+    closer.start()
+    # the close must not get past the put it raced: give it every chance
+    closer.join(0.5)
+    held.release.set()
+    writer.join(30)
+    closer.join(30)
+    assert not writer.is_alive() and not closer.is_alive()
+    assert held.order == ["put", "close"]
+    db2 = _mk("native", tmp_path / "db")  # the put landed before the close
+    assert db2.get(b"k") == b"v"
     db2.close()
