@@ -1,0 +1,49 @@
+"""The controls of `correct`, on the card at a cell's own size.
+
+    python3 benchmark/control.py --workload <cell> --seeds 7,8,9 --seconds 10 \\
+        --faults parity_unwritten,answer_altered,half_batch,state_unchanged
+
+Runs the cell once per seed and fault, with the fault planted under the
+timed path (benchmark/faults.py), and prints each run's compared numbers
+beside their limits as one JSON line. Every line must read correct false.
+The benchmark's own runs never run this.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from benchmark import faults, run  # noqa: E402
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--faults", required=True)
+    args = p.parse_args(argv)
+    run.fixed_caches()
+    cpus = run.split_cpus()
+    for name in args.faults.split(","):
+        for seed in (int(s) for s in args.seeds.split(",")):
+            try:
+                line = run.run_cell(args.workload, seed, args.seconds, False,
+                                    fault=faults.FAULTS[name], client_cpus=cpus)
+                out = {"correct": line["correct"], "checks": line["checks"]}
+            except run.RunError as e:  # a control that gives no number has failed
+                out = {"correct": False, "error": str(e)}
+            finally:
+                faults.restore()
+            print(json.dumps({"workload": args.workload, "fault": name, "seed": seed, **out}),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

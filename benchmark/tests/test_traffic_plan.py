@@ -1,0 +1,99 @@
+"""The traffic plans, the cells' files and the refusal without a card, on
+the host."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from benchmark import run, traffic
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+SPEC = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+CELLS = [w["name"] for w in SPEC["workloads"]]
+PUT = {"rate_per_s": 24, "senders": 1,
+       "sizes": {"dist": "log_uniform", "min": 65536, "max": 16777216}}
+GET = {"rate_per_s": 20, "warm_requests": 64,
+       "range_len": {"dist": "log_uniform", "min": 4096, "max": 4194304}}
+
+
+def test_same_seed_same_schedule_sizes_keys_and_ranges():
+    big = 2**31 + 99
+    assert traffic.put_schedule(PUT, big, 20) == traffic.put_schedule(PUT, big, 20)
+    data = traffic.sizes(PUT["sizes"], 64, big, traffic.PRELOAD)
+    assert data == traffic.sizes(PUT["sizes"], 64, big, traffic.PRELOAD)
+    assert traffic.get_schedule(GET, data, big, 20) == traffic.get_schedule(GET, data, big, 20)
+    assert traffic.warm_gets(GET, data, big) == traffic.warm_gets(GET, data, big)
+    assert np.array_equal(traffic.payload(big, 1, 5, 1000), traffic.payload(big, 1, 5, 1000))
+    assert traffic.put_schedule(PUT, big, 20) != traffic.put_schedule(PUT, big + 1, 20)
+
+
+def test_seeds_share_the_set_of_work():
+    """Another seed: another order and other bytes, the same sizes, gaps and
+    (object size, offset, length) triples."""
+    a, b = traffic.put_schedule(PUT, 1, 20), traffic.put_schedule(PUT, 2, 20)
+    assert sorted(p.size for p in a) == sorted(p.size for p in b)
+    gaps = lambda due, end: sorted(np.round(np.diff(list(due) + [end]), 9))  # noqa: E731
+    assert gaps([p.due_s for p in a], 20.0) == gaps([p.due_s for p in b], 20.0)
+    assert a[-1].due_s < 20.0 and a[0].due_s == 0.0
+    da, db = (traffic.sizes(PUT["sizes"], 64, s, traffic.PRELOAD) for s in (1, 2))
+    assert sorted(da) == sorted(db) and da != db
+
+    def triples(seed, data, seconds):
+        return sorted((data[g.key], g.offset, g.length)
+                      for _, g in traffic.get_schedule(GET, data, seed, seconds))
+
+    for seconds in (20, 51):  # blocks of 128 GETs and a part of one
+        assert triples(1, da, seconds) == triples(2, db, seconds)
+    ga, gb = traffic.get_schedule(GET, da, 1, 51), traffic.get_schedule(GET, db, 2, 51)
+    assert len(ga) == 20 * 51 and [g for _, g in ga] != [g for _, g in gb]
+    assert gaps([d for d, _ in ga], 51.0) == gaps([d for d, _ in gb], 51.0)
+    assert [d for d, _ in ga] != [d for d, _ in gb] and ga[0][0] == 0.0 and ga[-1][0] < 51.0
+    assert not np.array_equal(traffic.payload(1, 1, 0, 64), traffic.payload(2, 1, 0, 64))
+
+
+def test_ranges_lie_inside_their_objects():
+    data = traffic.sizes(PUT["sizes"], 256, 5, traffic.PRELOAD)
+    block = traffic.get_block(GET, data)
+    assert len(block) == 2 * len(data)
+    assert sum(g.length is None for g in block) == len(data)
+    for g in block:
+        if g.length is not None:
+            assert 0 <= g.offset and 1 <= g.length and g.offset + g.length <= data[g.key]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_planned_shards_stay_under_the_cap(cell):
+    _, spec = run.cell_spec(cell)
+    cfg, mix = traffic.load_config(spec["config"]), traffic.load_mix(spec["traffic"])
+    puts = [s for s in mix["window"] if s["op"] == "put"]
+    warm = run.warm_put_sizes(cfg, max(s["sizes"]["max"] for s in puts)) if puts else []
+    for seed in (1, 2**31 + 5):
+        planned = run.planned_bytes(cfg, mix, seed, SPEC["run_seconds"], warm)
+        assert planned <= mix["max_stored_bytes"] <= 2 << 30
+
+
+def test_each_config_mix_and_metric_is_found_by_name():
+    for c in SPEC["configs"]:
+        assert c["file"] == f"benchmark/configs/{c['name']}.json"
+        cfg = traffic.load_config(c["name"])
+        assert cfg["source"] == c["source"] and set(c["reduced"]) <= set(cfg["reduced"])
+    for w in SPEC["workloads"]:
+        mix = traffic.load_mix(w["traffic"])
+        assert mix["window"] and w["config"] in {c["name"] for c in SPEC["configs"]}
+    for m in SPEC["per_layer"]:
+        assert callable(run.load_reader(m["name"]))
+
+
+def test_refuses_without_a_card():
+    """No CUDA device: exit nonzero, name the missing card, print no result
+    (never a run on the host)."""
+    out = subprocess.run([sys.executable, "benchmark/run.py", "--workload", CELLS[0],
+                          "--seed", "1", "--seconds", "1", "--trace", "0"],
+                         capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and out.stdout.strip() == ""
