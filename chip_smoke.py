@@ -1134,6 +1134,7 @@ def phase_mesh(root: str, count, device: str = "cuda", shard_len: int = MiB,
     t0 = time.perf_counter()
     before = count()
     svc = CodecService(mesh=mesh)
+    batches0 = registry("codec").counter("batches_total").value
     try:
         c = MiniCluster(os.path.join(root, "grid"), n_nodes=9, disks_per_node=2, codec=svc)
         try:
@@ -1164,7 +1165,8 @@ def phase_mesh(root: str, count, device: str = "cuda", shard_len: int = MiB,
                 check(c.access.get(locs[name]) == payload, f"grid GET {name} after the heal")
             steps["2x2_minicluster_heal_ticks"] = ticks
             steps["2x2_minicluster_lost_shards"] = len(lost)
-            check(svc.stats_snapshot()["batches"] > 0, "the grid service ran no batch")
+            check(registry("codec").counter("batches_total").value > batches0,
+                  "the grid service ran no batch")
         finally:
             c.close()
     finally:
@@ -1195,10 +1197,11 @@ def repair_split(records: list[dict]) -> dict:
     """What the rebuild's time is made of, over every scheduler.repair span
     (one per disk-repair task) the soak finished: each span's critical path
     (cfs-trace) splits its wall time into download (the survivors' shard
-    reads), codec.host and codec.device (the decode's host staging and its
-    device batch, H2D + kernel + D2H), and what no stage covers (the write-
-    back of the rebuilt shards and the scheduler's glue). Stages overlap by
-    design, so the parts may sum past the wall."""
+    reads), wait.codec (the decode's queue wait), the decode batch's
+    codec.host and codec.launch (host staging; the copies, the kernel and
+    the wait for the stream), and what no stage covers (the write-back of
+    the rebuilt shards and the scheduler's glue). Stages overlap by design,
+    so the parts may sum past the wall."""
     from chubaofs_tpu_torch.tools.cfstrace import critical_path
 
     out = {"traces": len(records), "wall_ms": 0.0, "unattributed_ms": 0.0}
@@ -2710,6 +2713,13 @@ def main(argv: list[str] | None = None) -> int:
                 "gf_matmul_pipe": cuda_gf_pipe.LAUNCHES["dynamic"],
                 "gf_matmul_pipe_static": cuda_gf_pipe.LAUNCHES["static"]}
 
+    def codec_counts() -> dict:
+        from chubaofs_tpu_torch.utils.exporter import registry
+
+        reg = registry("codec")
+        return {"batches": reg.counter("batches_total").value,
+                "jobs": reg.counter("jobs_total").value}
+
     # phase 1: build
     wall["1_build"] = build_all([cuda_gf, cuda_gf_pipe])
     for lib in (cuda_gf, cuda_gf_pipe):
@@ -2747,18 +2757,19 @@ def main(argv: list[str] | None = None) -> int:
     svc = CodecService(device="cuda")
     try:
         zero_counts()
-        stats0 = svc.stats_snapshot()
+        stats0 = codec_counts()
         t0 = time.perf_counter()
         phases = phase_main_path(svc, gf256, pm, get_tactic, lrc_parity_matrix, models)
         phases["encoder_ec12p4_roundtrip"] = phase_encoder(new_encoder, CodeMode)
         counts = read_counts()
-        stats = svc.stats_snapshot()
+        stats = codec_counts()
     finally:
         svc.close()
     wall["3_4_codec_path"] = time.perf_counter() - t0
     batches = stats["batches"] - stats0["batches"]
     log("main_path " + json.dumps({"seconds": wall["3_4_codec_path"], "phases_s": phases,
-                                   "service_stats": stats, "device_batches": batches,
+                                   "device_batches": batches,
+                                   "device_jobs": stats["jobs"] - stats0["jobs"],
                                    "launches": counts}))
     check(counts["gf_matmul"] > 0, "the codec path launched no gf_matmul kernel")
     check(counts["gf_matmul"] >= batches, f"{counts['gf_matmul']} launches < {batches} device batches")

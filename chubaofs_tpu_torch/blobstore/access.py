@@ -150,6 +150,43 @@ class Location:
         return cls(**{**d, "blobs": blobs})
 
 
+class _ReadWaits:
+    """The read pool's waits of one fan-out of shard reads, for the span
+    current where it is made. Reads submitted in one `submit` call are a
+    burst; close(), once the fan-out is done, gives each burst one
+    `wait.read_pool` stage on the span, from its submission until the last
+    of its reads started on a worker (or until close, for a read still
+    queued then). So a fan-out adds a stage per burst, however many reads
+    the burst holds."""
+
+    def __init__(self, pool: ThreadPoolExecutor):
+        from chubaofs_tpu_torch.blobstore import trace
+
+        self._pool = pool
+        self._span = trace.current_span()
+        self._bursts: list[tuple[float, list]] = []
+
+    def submit(self, fn, calls: list[tuple]) -> list:
+        """fn(*args) on the pool for each args in `calls`: their futures."""
+        if self._span is None:
+            return [self._pool.submit(fn, *args) for args in calls]
+        starts: list = [None] * len(calls)
+        self._bursts.append((time.perf_counter(), starts))
+
+        def timed(i, args):
+            starts[i] = time.perf_counter()
+            return fn(*args)
+
+        return [self._pool.submit(timed, i, args) for i, args in enumerate(calls)]
+
+    def close(self) -> None:
+        t_end = time.perf_counter()
+        for t_submit, starts in self._bursts:
+            if starts:
+                last = max(t_end if s is None else s for s in starts)
+                self._span.add_stage("wait.read_pool", start=t_submit, dur=last - t_submit)
+
+
 class Access:
     """One gateway instance. nodes maps node_id -> BlobNode (transport-pluggable)."""
 
@@ -835,16 +872,18 @@ class Access:
         span = trace.current_span()
         t_hop = time.perf_counter()
         idxs = list(range(first_shard, last_shard + 1))
-        futs = [self._read_pool.submit(read_one, i) for i in idxs]
-        deadline = time.monotonic() + self.read_deadline
         pieces = []
         slow: set[int] = set()  # timed out, node possibly wedged
+        reads = _ReadWaits(self._read_pool)
+        futs = reads.submit(read_one, [(i,) for i in idxs])
+        deadline = time.monotonic() + self.read_deadline
         for i, f in zip(idxs, futs):
             try:
                 pieces.append(f.result(timeout=max(0.0, deadline - time.monotonic())))
             except FutureTimeout:
                 pieces.append(None)
                 slow.add(i)
+        reads.close()
         if span is not None:
             span.append_track_log("blobnode", start=t_hop)
         if all(p is not None for p in pieces):
@@ -886,10 +925,10 @@ class Access:
             az_reads: dict[int, np.ndarray] = {
                 g: stripe[g] for g in globals_in_az if g in pres
             }
-            futs = {g: self._read_pool.submit(
-                self._read_shard, vol, g, blob.bid, 0, shard_len)
-                for g in locals_in_az}
-            for g, fut in futs.items():
+            reads = _ReadWaits(self._read_pool)
+            futs = reads.submit(self._read_shard,
+                                [(vol, g, blob.bid, 0, shard_len) for g in locals_in_az])
+            for g, fut in zip(locals_in_az, futs):
                 budget = (max(0.0, deadline - time.monotonic())
                           if deadline is not None else None)
                 try:
@@ -899,6 +938,7 @@ class Access:
                     continue
                 if data is not None:
                     az_reads[g] = np.frombuffer(data, np.uint8)
+            reads.close()
             az_bad = [g for g in idx_list if g not in az_reads]
             if len(az_bad) > local_m:
                 continue
@@ -999,18 +1039,19 @@ class Access:
         hedged: set = set()  # futures already replaced for being slow
         next_i = 0
 
-        def launch() -> None:
-            nonlocal next_i
-            if next_i >= len(candidates):
-                return
-            idx = candidates[next_i]
-            next_i += 1
-            f = self._read_pool.submit(self._read_shard, vol, idx, bid, lo, n)
-            pending[f] = idx
-            launched[f] = time.monotonic()
+        reads = _ReadWaits(self._read_pool)
 
-        for _ in range(min(needed, len(candidates))):
-            launch()
+        def launch(count: int = 1) -> None:
+            """The next `count` candidates' reads, submitted together."""
+            nonlocal next_i
+            idxs = candidates[next_i:next_i + count]
+            next_i += len(idxs)
+            futs = reads.submit(self._read_shard, [(vol, idx, bid, lo, n) for idx in idxs])
+            for idx, f in zip(idxs, futs):
+                pending[f] = idx
+                launched[f] = time.monotonic()
+
+        launch(min(needed, len(candidates)))
         # overall gather budget: stragglers can be slow-but-alive, so this
         # is the generous write_deadline, not the per-read read_deadline
         gather_deadline = time.monotonic() + self.write_deadline
@@ -1055,6 +1096,7 @@ class Access:
                         launch()  # keep gather depth
         for fut in pending:  # abandon stragglers (queued ones cancel cleanly)
             fut.cancel()
+        reads.close()
         return got, failures
 
     def _degraded_window(self, t, vol, blob, shard_len, offset, size,

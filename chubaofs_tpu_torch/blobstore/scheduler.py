@@ -820,8 +820,8 @@ class RepairWorker:
     CFS_REPAIR_WINDOW stripes' survivor downloads in flight while earlier
     stripes decode on the device (the PUT pipeline's window pattern applied
     to repair-GET). Every task runs under a `scheduler.repair` span whose
-    `download` stages and the codec's `codec.host`/`codec.device` stages let
-    cfs-trace prove the overlap.
+    `download` stages and the codec's `codec.*` stages (codec/service.py)
+    let cfs-trace prove the overlap.
     """
 
     def __init__(self, sched: Scheduler, nodes: dict[int, BlobNode],

@@ -18,10 +18,14 @@ Beyond the wire-form track log, every span is a STRUCTURED record: a span id,
 its parent (in-process parent span, or the remote caller's span id carried
 next to the trace id), a wall-clock start stamp plus monotonic duration, and
 named STAGES — (name, offset, duration) attributions inside the span
-(encode device time, raft commit wait, pool checkout...) that the
-critical-path analyzer (tools/cfstrace.py) projects onto the request's wall
-time. `finish()` hands the span to the trace sink (utils/tracesink.py) when
-one is installed; with no sink the hook is a single None check.
+that the critical-path analyzer (tools/cfstrace.py) projects onto the
+request's wall time. Stage names are one family: `wait.<resource>` for time
+spent waiting on a resource (`wait.codec`, the codec service's queue;
+`wait.read_pool`, the gateway's read pool) and `<layer>.<what>` or a plain
+step name for work (`read`, `gather`, `decode`, `encode`, `write`; the
+codec's `codec.host` and `codec.launch`, codec/service.py; `rpc.pool`,
+`raft`...). `finish()` hands the span to the trace sink (utils/tracesink.py)
+when one is installed; with no sink the hook is a single None check.
 """
 
 from __future__ import annotations

@@ -21,6 +21,24 @@ fill it. This service batches instead:
 Batching trades a bounded latency (max_wait_ms) for throughput, exactly like the
 reference's proxy-side volume-allocation batching — but for math instead of
 metadata.
+
+Each job's time rides its submitter's trace span (trace.current_span() at
+submission) as stages on the time.perf_counter clock:
+
+  * `wait.codec`: from submission to the start of the job's batch (the
+    queue, and the drain's max_wait_ms coalescing window);
+  * the batch's wall, [start, end], given to every job of the batch in two
+    stages that meet end to end: `codec.host` (stacking into the staging
+    buffer) and `codec.launch`, the rest of the call: matrix expansion, the
+    host->device copy, the kernel, the device->host copy and the wait for
+    the stream on a card; the matmul on the CPU device; the whole fan-out
+    with a mesh. The card's own share of it is the profiler's to give: CUDA
+    events around a few-microsecond kernel time their own cost, not the
+    kernel's.
+
+`wait.codec` is not named `codec.*` on purpose: the repair plane's
+download/decode overlap (scheduler.stage_overlap_ratio, the soak's
+cfs-trace proof) counts the `codec.` stages as codec work.
 """
 
 from __future__ import annotations
@@ -28,6 +46,7 @@ from __future__ import annotations
 import functools
 import queue
 import threading
+import time
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 
@@ -72,10 +91,11 @@ class _Job:
     future: Future = field(default_factory=Future)
     # matmul jobs carry their GF matrix (repair rows x survivors)
     mat: np.ndarray | None = None
-    # the SUBMITTER's trace span (if any): the dispatcher attributes its
-    # batch's host/device time back onto it as named stages, so a PUT's
-    # critical-path report splits encode wait into host-ms vs device-ms
+    # the SUBMITTER's trace span (if any) and when the job was queued: the
+    # dispatcher attributes the job's queue wait and its batch's stages
+    # back onto it (module docstring)
     span: object | None = None
+    submitted: float = 0.0
 
 
 def _pad_to_bucket(data: np.ndarray, k: int, kb: int) -> np.ndarray:
@@ -123,13 +143,6 @@ class CodecService:
         self._started = False
         self._closed = False
         self._lock = SanitizedLock(name="codec.lifecycle")
-        # dispatcher observability: how well jobs coalesce into device batches
-        # (same counter shape as MultiRaft.drain_stats for the raft drain).
-        # The codec role registry (cfs_codec_*) is the primary surface; this
-        # dict is the legacy view, mutated only under _stats_lock so readers
-        # get consistent snapshots (stats_snapshot).
-        self.stats = {"batches": 0, "jobs": 0, "max_batch": 0}
-        self._stats_lock = SanitizedLock(name="codec.stats")
 
     def _ensure_started(self):
         with self._lock:
@@ -363,6 +376,7 @@ class CodecService:
         from chubaofs_tpu_torch.blobstore import trace
 
         job.span = trace.current_span()
+        job.submitted = time.perf_counter()
         self._ensure_started()
         self._q.put(job)
 
@@ -375,8 +389,6 @@ class CodecService:
             raise StopIteration
         batch = [first]
         deadline = self.max_wait
-        import time
-
         t0 = time.monotonic()
         while len(batch) < self.max_batch:
             remaining = deadline - (time.monotonic() - t0)
@@ -433,17 +445,8 @@ class CodecService:
                         if not j.future.done():
                             j.future.set_exception(e)
 
-    def stats_snapshot(self) -> dict:
-        """Consistent copy of the legacy counters (no torn reads)."""
-        with self._stats_lock:
-            return dict(self.stats)
-
     def _record_batch(self, jobs: int, elapsed_s: float,
                       kind: str = "") -> None:
-        with self._stats_lock:
-            self.stats["batches"] += 1
-            self.stats["jobs"] += jobs
-            self.stats["max_batch"] = max(self.stats["max_batch"], jobs)
         from chubaofs_tpu_torch.utils.exporter import BATCH_BUCKETS, registry
 
         reg = registry("codec")
@@ -458,16 +461,17 @@ class CodecService:
         reg.summary("dispatch_seconds").observe(elapsed_s)
 
     def _run_group(self, sig: tuple, jobs: list[_Job]):
-        import time as _time
-
-        t0 = _time.perf_counter()
+        t0 = time.perf_counter()
+        for j in jobs:
+            if j.span is not None:
+                j.span.add_stage("wait.codec", start=j.submitted, dur=t0 - j.submitted)
         # jobs arrive pre-padded to the bucket: stacking into the (pinned,
         # on a GPU) host staging buffer is the whole host job here
         first = jobs[0].data
         buf = rs.host_buffer((len(jobs), *first.shape), self.device)
         stack = buf.numpy()
         np.stack([j.data for j in jobs], out=stack)
-        t_dev = _time.perf_counter()
+        t_dev = time.perf_counter()
         # H2D copy, one kernel launch, D2H copy (rs.gf_matmul_hostbatch) —
         # or, with a mesh, the same fanned out in blocks over every device
         if self._mesh_mm is not None:
@@ -482,17 +486,16 @@ class CodecService:
             from chubaofs_tpu_torch.ops import bitmatrix
 
             out = mm(bitmatrix.expand_matrix(jobs[0].mat).astype(np.int8), batch)
-        t_done = _time.perf_counter()
+        t_done = time.perf_counter()
         self._record_batch(len(jobs), t_done - t0, kind=str(sig[0]))
         for j in jobs:
             if j.span is not None:
                 # the BATCH's wall intervals, attributed to every rider: the
-                # job was on the host/device during exactly these windows
-                # (shared across the batch — sums can exceed device seconds,
-                # wall-clock union cannot)
+                # job was in each for exactly these windows (shared across
+                # the batch — sums over riders can exceed the batch's
+                # seconds, the wall-clock union cannot)
                 j.span.add_stage("codec.host", start=t0, dur=t_dev - t0)
-                j.span.add_stage("codec.device", start=t_dev,
-                                 dur=t_done - t_dev)
+                j.span.add_stage("codec.launch", start=t_dev, dur=t_done - t_dev)
         for i, j in enumerate(jobs):
             j.future.set_result(out[i, :, : j.k])
 

@@ -156,7 +156,7 @@ def critical_path(records: list[dict], root_op: str | None = None) -> dict:
 def stage_overlap(records: list[dict], a: str, b: str) -> dict:
     """How much two stage families of a trace ran CONCURRENTLY: collect the
     intervals of every stage whose name matches `a` (exact or prefix — pass
-    "codec." to cover codec.host+codec.device) and likewise `b`, then
+    "codec." to cover every codec.* stage) and likewise `b`, then
     measure the intersection of the two interval unions. `ratio` is that
     intersection over the SMALLER union — 1.0 means the lesser stage was
     entirely hidden behind the greater (perfect pipelining), 0.0 means they
@@ -240,7 +240,7 @@ def _stage_tree(rec: dict) -> tuple[list[tuple[str, float, float]],
                                     dict[int, list[int]], list[int]]:
     """A span's stages as a containment hierarchy: stage B whose interval
     sits inside a strictly-larger stage A is A's child (encode contains
-    codec.host/codec.device). Returns (intervals, children-by-idx, tops)."""
+    codec.host/codec.launch). Returns (intervals, children-by-idx, tops)."""
     base = float(rec.get("start", 0.0))
     ivs = [(str(n), base + off / 1e6, base + (off + dur) / 1e6)
            for n, off, dur in rec.get("stages", ())]
@@ -265,7 +265,7 @@ def flamegraph(records: list[dict]) -> str:
     """Collapsed-stack text flamegraph: one `path;to;frame <ms>` line per
     span and per stage (the format flamegraph.pl and speedscope ingest),
     self-time style. Stages nest by interval containment (a 10ms encode
-    wait containing 7ms of codec.device emits 3/7, not 10/7), and a span
+    wait containing 7ms of codec.launch emits 3/7, not 10/7), and a span
     frame excludes its child spans and top-level stages — summing a frame
     with its prefixed children reproduces the span's width, never more."""
     roots, children = build_tree(records)

@@ -8,6 +8,7 @@ test_ranged_reads.py and test_pm_codes.py are ported here against the port.
 
 import io
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -241,6 +242,7 @@ def test_codec_service_concurrent_mixed_load():
         except Exception as e:  # pragma: no cover - failure reporting
             errors.append(f"seed {seed}: {type(e).__name__}: {e}")
 
+    jobs0 = registry("codec").counter("jobs_total").value
     try:
         threads = [threading.Thread(target=worker, args=(s,)) for s in range(8)]
         for t in threads:
@@ -249,7 +251,7 @@ def test_codec_service_concurrent_mixed_load():
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads), "worker deadlocked"
         assert not errors, errors
-        assert svc.stats_snapshot()["jobs"] == 8 * 6 * 2
+        assert registry("codec").counter("jobs_total").value - jobs0 == 8 * 6 * 2
     finally:
         svc.close()
 
@@ -277,12 +279,13 @@ def test_cancelled_job_is_skipped_before_device_work():
     svc = CodecService(device=CPU, max_wait_ms=200.0)
     try:
         data = np.ones((4, 128), np.uint8)
+        jobs0 = registry("codec").counter("jobs_total").value
         keep = svc.encode(4, 2, data)
         drop = svc.encode(4, 2, data)
         assert drop.cancel()
         assert keep.result(timeout=30).shape == (6, 128)
         assert drop.cancelled()
-        assert svc.stats_snapshot()["jobs"] == 1
+        assert registry("codec").counter("jobs_total").value - jobs0 == 1
         assert not keep.cancel()  # already finished
     finally:
         svc.close()
@@ -382,14 +385,77 @@ def test_service_without_cuda_raises_unless_cpu_asked(monkeypatch):
 def test_service_attributes_stages_and_counts_batches(svc, rng):
     reg = registry("codec")
     before = reg.counter("kind_jobs_total", {"kind": "matmul"}).value
+    batches0 = reg.counter("batches_total").value
     with t_trace.start_span("put") as span:
         f = svc.matmul(rng.integers(0, 256, (2, 3), dtype=np.uint8),
                        rng.integers(0, 256, (3, 100), dtype=np.uint8))
     f.result(timeout=30)
     names = [s[0] for s in span.stages]
-    assert "codec.host" in names and "codec.device" in names
+    assert {"wait.codec", "codec.host", "codec.launch"} <= set(names)
     assert reg.counter("kind_jobs_total", {"kind": "matmul"}).value == before + 1
-    assert svc.stats_snapshot()["batches"] >= 1
+    assert reg.counter("batches_total").value - batches0 >= 1
+
+
+def _at(span, prefix):
+    """The span's stages whose names start with `prefix`, as sorted
+    (start, end, name) on the perf_counter clock."""
+    return sorted((span.start + off, span.start + off + dur, name)
+                  for name, off, dur in span.stages if name.startswith(prefix))
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode_rows", "matmul"])
+def test_queue_wait_ends_where_the_batch_tiles_its_wall(rng, kind):
+    """A job's wait.codec runs from its submission to the start of its
+    batch, and the batch's codec.host and codec.launch stages then cover
+    its wall end to end, one after the other."""
+    data = rng.integers(0, 256, (6, 3000), dtype=np.uint8)
+    svc = CodecService(device=CPU, max_wait_ms=5.0)
+    try:
+        with t_trace.start_span("get") as span:
+            t_before = time.perf_counter()
+            if kind == "encode":
+                f = svc.encode(6, 3, data)
+            elif kind == "decode_rows":
+                f = svc.decode_rows(6, 3, [0, 2, 3, 5, 6, 8], data, [1, 4])
+            else:
+                f = svc.matmul(rng.integers(0, 256, (2, 6), dtype=np.uint8), data)
+            t_after = time.perf_counter()
+            f.result(timeout=30)
+            t_result = time.perf_counter()
+    finally:
+        svc.close()
+    ((w0, w1, _),) = _at(span, "wait.codec")
+    assert t_before <= w0 <= t_after and w1 >= w0
+    (h0, h1, host), (l0, l1, launch) = _at(span, "codec.")
+    assert (host, launch) == ("codec.host", "codec.launch")
+    assert h0 == pytest.approx(w1, abs=1e-9) and h1 == pytest.approx(l0, abs=1e-9)
+    assert h0 < h1 < l1 <= t_result
+
+
+def test_every_rider_of_a_batch_gets_its_wall_and_its_own_wait(rng):
+    """Jobs from three spans that share one batch: each span carries the
+    batch's codec.host and codec.launch, the same for all, and its own
+    wait.codec from its own submission."""
+    svc = CodecService(device=CPU, max_wait_ms=300.0, max_batch=3)
+    spans, futs = [], []
+    try:
+        for _ in range(3):
+            with t_trace.start_span("get") as span:
+                futs.append(svc.encode(4, 2, rng.integers(0, 256, (4, 1000), dtype=np.uint8)))
+            spans.append(span)
+            time.sleep(0.01)
+        for f in futs:
+            f.result(timeout=30)
+    finally:
+        svc.close()
+    batch = _at(spans[0], "codec.")
+    assert [name for _, _, name in batch] == ["codec.host", "codec.launch"]
+    for sp in spans[1:]:
+        assert _at(sp, "codec.") == [(pytest.approx(s, abs=1e-9), pytest.approx(e, abs=1e-9), n)
+                                     for s, e, n in batch]
+    waits = [_at(sp, "wait.codec")[0] for sp in spans]
+    assert waits[0][0] < waits[1][0] < waits[2][0]
+    assert all(w[1] == pytest.approx(batch[0][0], abs=1e-9) for w in waits)
 
 
 def test_encode_failpoint_fires_in_the_port(rng):

@@ -219,6 +219,125 @@ def test_degraded_range_decodes_window_not_stripe(cluster, rng):
     assert decoded < shard_len
 
 
+@pytest.mark.parametrize("blob_size", [4 << 20, 64 << 10])
+def test_degraded_get_span_carries_queue_waits_and_codec_stages(cluster, rng, blob_size):
+    """A degraded GET's span holds its read-pool waits (one a fan-out: the
+    direct reads, then the gather), its codec queue wait and the codec
+    batch's stages, the codec's inside a decode stage, and drops no stage,
+    with one blob as with many."""
+    from chubaofs_tpu_torch.blobstore import trace
+
+    cluster.access.max_blob_size = blob_size
+    data = blob_bytes(rng, 640 << 10)
+    loc = cluster.access.put(data, code_mode=CodeMode.EC12P4)
+    for blob in loc.blobs:
+        lose(cluster, blob, 1)
+    spans = []
+    prev = trace.finish_hook()
+    trace.set_finish_hook(lambda sp: spans.append(sp) if sp.operation == "access.get" else None)
+    try:
+        assert cluster.access.get(loc) == data
+    finally:
+        trace.set_finish_hook(prev)
+    (span,) = spans
+    assert span.stage_dropped == 0
+    names = [name for name, _, _ in span.stages]
+    assert names.count("wait.read_pool") == 2 * len(loc.blobs)
+    assert names.count("decode") == names.count("wait.codec") == len(loc.blobs)
+    assert {"read", "gather", "codec.host", "codec.launch"} <= set(names)
+    decodes = [(off, off + dur) for name, off, dur in span.stages if name == "decode"]
+    for name, off, dur in span.stages:
+        if name == "wait.codec" or name.startswith("codec."):
+            assert any(d0 - 1e-9 <= off and off + dur <= d1 + 1e-9 for d0, d1 in decodes), name
+
+
+def _wait_stages(span):
+    return [(span.start + off, span.start + off + dur) for name, off, dur in span.stages
+            if name == "wait.read_pool"]
+
+
+def test_read_waits_without_a_span_add_nothing():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chubaofs_tpu_torch.blobstore.access import _ReadWaits
+
+    with ThreadPoolExecutor(2) as pool:
+        reads = _ReadWaits(pool)
+        assert [f.result() for f in reads.submit(pow, [(2, 3), (3, 2)])] == [8, 9]
+        reads.close()
+
+
+def test_a_burst_waits_until_its_last_read_starts():
+    """Three reads on one worker: the burst's one stage runs from its
+    submission until the third read started, after the first two ran."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chubaofs_tpu_torch.blobstore import trace
+    from chubaofs_tpu_torch.blobstore.access import _ReadWaits
+
+    starts = []
+
+    def read(i):
+        starts.append(time.perf_counter())
+        time.sleep(0.02)
+        return i
+
+    with ThreadPoolExecutor(1) as pool, trace.start_span("get") as span:
+        t0 = time.perf_counter()
+        reads = _ReadWaits(pool)
+        assert [f.result() for f in reads.submit(read, [(0,), (1,), (2,)])] == [0, 1, 2]
+        reads.close()
+    ((w0, w1),) = _wait_stages(span)
+    assert t0 <= w0 <= starts[0] and starts[1] < w1 <= starts[2]
+    assert w1 - w0 >= 0.04
+
+
+def test_each_burst_of_a_fan_out_is_one_stage():
+    """A fan-out that submits twice (a replacement after the first burst
+    ran) adds two stages, and none for the time the first burst's reads ran."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chubaofs_tpu_torch.blobstore import trace
+    from chubaofs_tpu_torch.blobstore.access import _ReadWaits
+
+    with ThreadPoolExecutor(4) as pool, trace.start_span("get") as span:
+        reads = _ReadWaits(pool)
+        for f in reads.submit(time.sleep, [(0.02,), (0.02,)]):
+            f.result()
+        t_second = time.perf_counter()
+        reads.submit(time.sleep, [(0.0,)])[0].result()
+        reads.close()
+    first, second = _wait_stages(span)
+    assert first[1] < t_second <= second[0]
+    assert first[1] - first[0] < 0.02
+
+
+def test_a_read_still_queued_waits_until_the_fan_out_ends():
+    """A read no worker took before close() waited until close(); its start
+    after close changes nothing."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chubaofs_tpu_torch.blobstore import trace
+    from chubaofs_tpu_torch.blobstore.access import _ReadWaits
+
+    gate = threading.Event()
+    with ThreadPoolExecutor(1) as pool, trace.start_span("get") as span:
+        reads = _ReadWaits(pool)
+        busy, queued = reads.submit(lambda: gate.wait(5), [(), ()])
+        time.sleep(0.01)
+        t_close = time.perf_counter()
+        reads.close()
+        gate.set()
+        busy.result(), queued.result()
+    ((w0, w1),) = _wait_stages(span)
+    assert t_close <= w1 <= time.perf_counter()
+    assert len(span.stages) == 1
+
+
 def test_degraded_gather_skips_unselected_parity(cluster, rng):
     """The degraded window gather launches survivor reads it
     SELECTS — with one lost data shard, one replacement suffices, so the
