@@ -1,7 +1,9 @@
-"""Faults planted under the timed path, for the controls of `correct`.
+"""Faults planted under the timed path, for the controls of `correct`, and
+one slowdown, for the control of a metric's sensitivity.
 
-Each fault is a function of the live daemon that patches the program in
-this process after the preload, before the window's warm-up; a run with it must come out not correct.
+Each is a function of the live daemon that patches the program in this
+process after the preload, before the window's warm-up; a run with a fault
+must come out not correct.
 The benchmark's own runs plant none: benchmark/control.py runs them on the
 card at a cell's own size, benchmark/tests on the host at a small one.
 
@@ -17,23 +19,30 @@ card at a cell's own size, benchmark/tests on the host at a small one.
   * half_batch: the codec computes only the first half of each device batch
     and leaves the rest zero.
   * state_unchanged: a shard write returns without storing anything.
+  * decode_delayed: every codec batch sleeps 3 ms before its call, and
+    computes the right answer. A control of get_loss_x's sensitivity (a
+    slower decode has to raise it), not of `correct`: a run with it must
+    come out correct.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
 _REAL: dict = {}  # the codec's batch entry, while a fault wraps it
 
 
-def _patch_batches(fn) -> None:
+def _patch_batches(fn, delay_s: float = 0.0) -> None:
     """Wrap the codec's batch entry (rs.gf_matmul_hostbatch): fn(out) edits
-    the (batch, rows, k) result in place."""
+    the (batch, rows, k) result in place; the call waits delay_s first."""
     from chubaofs_tpu_torch.ops import rs
 
     real = _REAL.setdefault("hostbatch", rs.gf_matmul_hostbatch)
 
     def broken(mat_bits, shards, device=None):
+        time.sleep(delay_s)
         out = np.array(real(mat_bits, shards, device=device))
         fn(out.reshape(-1, *out.shape[-2:]))
         return out
@@ -95,8 +104,13 @@ def half_batch(daemon) -> None:
     _patch_batches(drop)
 
 
+def decode_delayed(daemon) -> None:
+    _patch_batches(lambda out: None, delay_s=0.003)
+
+
 FAULTS = {f.__name__: f for f in (parity_unwritten, decode_skipped, shard_altered,
-                                  answer_altered, half_batch, state_unchanged)}
+                                  answer_altered, half_batch, state_unchanged,
+                                  decode_delayed)}
 
 
 def restore() -> None:

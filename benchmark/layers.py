@@ -9,7 +9,9 @@ perf_counter), `codec` (the codec service's counters over the window:
 batches, jobs, dispatch_s), `traced_s` (the window from GO until its last
 answer), `device` (devtrace.DeviceTrace.stop(), or None) and `records`
 (the client's records of the window's requests: op, due, sent, done,
-status, bytes, on time.monotonic()).
+status, bytes, on time.monotonic()) and `loss` (a mix that loses its
+disks inside the window: `split`, the monotonic time between its halves,
+and `start` and `end`, when the loss began and ended; else None).
 """
 
 from __future__ import annotations
@@ -38,6 +40,53 @@ def get_mibps(records: list[dict], t0: float, seconds: float) -> float | None:
         return None
     span = max(seconds, max(r["done"] for r in gets) - t0)
     return sum(r["bytes"] for r in gets) / 2**20 / span
+
+
+# a pair is dropped where either GET was due from GUARD_BEFORE_S before the
+# loss began until GUARD_AFTER_S after it ended: those GETs wait out the
+# loss's own pause and the first decode of each shape after it
+GUARD_BEFORE_S, GUARD_AFTER_S = 0.5, 2.0
+MIN_PAIRS = 200
+
+
+def loss_pairs(records: list[dict], loss: dict) -> tuple[list[tuple[float, float]], int]:
+    """Each object's whole GET in the window's first half and its whole GET
+    in the second (a halved stream reads each object whole once a half), as
+    (before, after) seconds from due to last byte, a failed GET as
+    infinite; and how many such pairs the loss's guard dropped."""
+    halves: tuple[dict, dict] = ({}, {})
+    for r in records:
+        if r["op"] == "get" and r["length"] is None:
+            halves[r["due"] >= loss["split"]][r["key"]] = r
+    lo, hi = loss["start"] - GUARD_BEFORE_S, loss["end"] + GUARD_AFTER_S
+    pairs, dropped = [], 0
+    for key in sorted(halves[0].keys() & halves[1].keys()):
+        pair = (halves[0][key], halves[1][key])
+        if any(lo <= r["due"] <= hi for r in pair):
+            dropped += 1
+            continue
+        pairs.append(tuple(r["done"] - r["due"] if r["status"] == 200 else float("inf")
+                           for r in pair))
+    return pairs, dropped
+
+
+def get_loss_x(records: list[dict], loss: dict | None) -> float | None:
+    """What a lost disk costs a whole-object read: the median over objects
+    of its latency after the loss over its latency before it, the guard's
+    pairs left out; None under MIN_PAIRS pairs."""
+    pairs = loss_pairs(records, loss)[0] if loss else []
+    if len(pairs) < MIN_PAIRS:
+        return None
+    return statistics.median(after / before for before, after in pairs)
+
+
+def loss_p50_ms(ctx: dict, half: int) -> float | None:
+    """Median of the paired whole-object GETs of one half (0 before the
+    loss, 1 after it), in ms."""
+    pairs = loss_pairs(ctx["records"], ctx["loss"])[0] if ctx.get("loss") else []
+    if not pairs:
+        return None
+    return statistics.median(p[half] for p in pairs) * 1e3
 
 
 def stage_share(ctx: dict, op: str, stages: tuple[str, ...]) -> float | None:

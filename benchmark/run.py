@@ -7,8 +7,9 @@ it (`cmd.start_role`, role blobstore, on the CUDA device), with its cluster
 under the TMPDIR it is given. The cell's traffic comes from
 benchmark/client.py in a separate process over loopback HTTP: a preload
 where the mix has one, the disks the mix loses, warm-up requests for every
-shape the window uses, then the window. After the window the run checks
-what the timed path produced against the plain reference
+shape the window uses, then the window. A mix whose GET stream has
+`halves` loses its disks inside the window instead, at the split between
+the halves, while the client keeps sending. After the window the run checks what the timed path produced against the plain reference
 (benchmark/check.py) and prints one JSON line: the end-to-end metrics with
 --trace 0, the per-layer ones (spans, counters, torch.profiler) with
 --trace 1.
@@ -37,7 +38,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 
-from benchmark import check, layers, traffic  # noqa: E402
+from benchmark import check, layers, system, traffic  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "chubaofs_tpu")
 BUCKETS = [16 << 10 << i for i in range(6)]  # the codec's shard buckets, 16 KiB .. 512 KiB
@@ -192,6 +193,15 @@ def host_share(a: tuple, b: tuple, seconds: float) -> str:
             f"{(b[1] - a[1]) / seconds:.2f} cores")
 
 
+def lose(cluster, victims: list[int]) -> None:
+    if not victims:
+        return
+    lost = system.lose_disks(cluster, victims)
+    if not lost:
+        raise RunError("the lost disks held no shards")
+    log(f"lost disks {victims}: {lost} shards")
+
+
 def load_reader(name: str):
     path = os.path.join(HERE, "metrics", f"{name}.py")
     spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
@@ -225,7 +235,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
 
     import torch
 
-    from benchmark import devtrace, system
+    from benchmark import devtrace
 
     log(f"host: {host_info()}")
     workdir = tempfile.mkdtemp(prefix="cfs-bench-")
@@ -246,15 +256,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
                 dataset = json.load(f)
             if proc.returncode != 0:
                 raise RunError(f"preload failed: {dataset['errors'][:5]}")
-        victims = system.victims(cluster, mix["lose_disks"])
-        lost = system.lose_disks(cluster, victims)
-        if mix["lose_disks"]:
-            if not lost:
-                raise RunError("the lost disks held no shards")
-            log(f"lost disks {victims}: {lost} shards")
+        # the planes off before any loss, so that no repair task races it
         switches = cfg.get("switches_off", []) + mix["switches_off"]
         if switches:
             system.switch_off(daemon.addr, switches)
+        victims = system.victims(cluster, mix["lose_disks"])
+        halved = any(s.get("halves") for s in mix["window"])  # lose at the split
+        if not halved:
+            lose(cluster, victims)
         if fault is not None:
             fault(daemon)
         out, proc = client(job, workdir, "window", client_cpus, dataset=dataset,
@@ -274,6 +283,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         t_go = time.monotonic()
         proc.stdin.write("GO\n")
         proc.stdin.flush()
+        loss = None
+        if halved:  # here, while the client keeps pacing
+            time.sleep(max(0.0, t_go + seconds / 2 - time.monotonic()))
+            loss = {"start": time.monotonic()}
+            lose(cluster, victims)
+            loss["end"] = time.monotonic()
+            log(f"the loss began {loss['start'] - t_go:.3f} s into the window and took "
+                f"{loss['end'] - loss['start']:.3f} s")
         read_line(proc, "DONE", seconds + 600)
         t_done = time.monotonic()
         codec1, decoded1, clock1 = system.codec_counters(), system.decoded_bytes(), host_clock()
@@ -292,6 +309,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         log(host_share(clock0, clock1, t_done - t_go))
         log(f"window: {len(records)} requests, pacer late by at most "
             f"{result['pacer_late_s'] * 1e3:.1f} ms, last answer {t_done - t_go:.2f} s after GO")
+        if loss is not None:
+            loss["split"] = result["t0"] + seconds / 2
+            pairs, dropped = layers.loss_pairs(records, loss)
+            log(f"whole GETs paired across the loss: {len(pairs)} kept, {dropped} dropped "
+                f"by its guard; get_loss_x {layers.get_loss_x(records, loss)}")
 
         puts = check.check_puts(cluster, cfg["policies"], seed, records) if put_streams else None
         gets = check.check_gets(records) if any(s["op"] == "get" for s in mix["window"]) else None
@@ -306,7 +328,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
 
         if trace:
             ctx = {"spans": spans.spans, "codec": {k: codec1[k] - codec0[k] for k in codec0},
-                   "traced_s": t_done - t_go, "device": device_summary, "records": records}
+                   "traced_s": t_done - t_go, "device": device_summary, "records": records,
+                   "loss": loss}
             values = {}
             for m in metrics:
                 v = load_reader(m["name"])(ctx)

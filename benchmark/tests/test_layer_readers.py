@@ -18,7 +18,7 @@ def ctx(**kw):
     base = {"spans": [SPAN, GET], "codec": {"batches": 4, "jobs": 10, "dispatch_s": 0.5},
             "traced_s": 10.0, "device": {"busy_s": 0.25, "window_s": 10.0},
             "records": [{"op": "get", "due": 1.0, "done": 1.0 + i / 1e3, "status": 200}
-                        for i in range(1, 101)]}
+                        for i in range(1, 101)], "loss": None}
     base.update(kw)
     return base
 
@@ -66,3 +66,63 @@ def test_get_rate_counts_every_answer_over_the_window_or_longer():
     assert layers.get_mibps(recs, 100.0, 10.0) == pytest.approx(0.2)
     assert layers.get_mibps(recs, 100.0, 4.0) == pytest.approx(0.4)
     assert layers.get_mibps([], 100.0, 4.0) is None
+
+
+# a window of 300 objects read whole once in each half: before the loss in
+# 10 ms (object k: 10 + k/100 ms), after it in 25 ms; the loss runs 50.0-50.5
+# s, the halves split at 50.0
+LOSS = {"split": 50.0, "start": 50.0, "end": 50.5}
+
+
+def whole(key, due, lat_ms, status=200):
+    return {"op": "get", "key": key, "offset": 0, "length": None, "due": due,
+            "done": due + lat_ms / 1e3, "status": status}
+
+
+def halves(n=300, guard_keys=()):
+    """Before: due at 1 + k/10 s; after: due at 54 + k/10 s (past the
+    guard), or at 51.0 s (inside it) for the guard_keys."""
+    recs = []
+    for k in range(n):
+        recs.append(whole(k, 1.0 + k / 10, 10 + k / 100))
+        recs.append(whole(k, 51.0 if k in guard_keys else 54.0 + k / 10, 25.0))
+        recs.append({**whole(k, 60.0, 1.0), "offset": 5, "length": 7})  # ranged: never paired
+    return recs
+
+
+def test_loss_pairs_pair_each_objects_whole_reads_across_the_split():
+    pairs, dropped = layers.loss_pairs(halves(), LOSS)
+    assert dropped == 0 and len(pairs) == 300
+    assert pairs[7] == pytest.approx((0.01007, 0.025))
+
+
+@pytest.mark.parametrize("due,dropped", [
+    (49.49, 0), (49.5, 1), (52.5, 1), (52.51, 0)])  # the guard: 0.5 s before, 2 s after
+def test_loss_guard_drops_pairs_due_around_the_loss(due, dropped):
+    recs = halves(n=250)
+    recs[0] = whole(0, due, 10.0) if due < LOSS["split"] else recs[0]
+    recs[1] = whole(0, due, 25.0) if due >= LOSS["split"] else recs[1]
+    pairs, got = layers.loss_pairs(recs, LOSS)
+    assert got == dropped and len(pairs) == 250 - dropped
+
+
+def test_loss_x_is_the_median_ratio_and_needs_200_pairs():
+    # ratios 25 / (10 + k/100) over k = 0..299: the median of 150 and 151
+    want = (25 / (10 + 149 / 100) + 25 / (10 + 150 / 100)) / 2
+    assert layers.get_loss_x(halves(), LOSS) == pytest.approx(want)
+    assert layers.get_loss_x(halves(), None) is None
+    assert layers.get_loss_x(halves(n=200), LOSS) is not None
+    assert layers.get_loss_x(halves(n=230, guard_keys=range(31)), LOSS) is None  # 199 left
+
+
+def test_loss_pair_with_a_failed_read_counts_as_infinite():
+    recs = halves(n=201)
+    recs[1] = whole(0, recs[1]["due"], 25.0, status=-1)
+    assert layers.loss_pairs(recs, LOSS)[0][0] == (pytest.approx(0.01), float("inf"))
+
+
+def test_loss_medians_of_each_half():
+    c = ctx(records=halves(), loss=LOSS)
+    assert run.load_reader("client.get_before_p50_ms")(c) == pytest.approx(11.495)
+    assert run.load_reader("client.get_after_p50_ms")(c) == pytest.approx(25.0)
+    assert run.load_reader("get_loss_x")(c) == layers.get_loss_x(c["records"], LOSS)
