@@ -20,8 +20,8 @@ card at a cell's own size, benchmark/tests on the host at a small one.
     and leaves the rest zero.
   * state_unchanged: a shard write returns without storing anything.
   * decode_delayed: every codec batch sleeps 3 ms before its call, and
-    computes the right answer. A control of get_loss_x's sensitivity (a
-    slower decode has to raise it), not of `correct`: a run with it must
+    computes the right answer. A control of get_degraded_x's sensitivity
+    (a slower decode has to raise it), not of `correct`: a run with it must
     come out correct.
 """
 

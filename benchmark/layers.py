@@ -8,10 +8,10 @@ of the window: op, start, dur, stages as (name, start, dur) on the host's
 perf_counter), `codec` (the codec service's counters over the window:
 batches, jobs, dispatch_s), `traced_s` (the window from GO until its last
 answer), `device` (devtrace.DeviceTrace.stop(), or None) and `records`
-(the client's records of the window's requests: op, due, sent, done,
-status, bytes, on time.monotonic()) and `loss` (a mix that loses its
-disks inside the window: `split`, the monotonic time between its halves,
-and `start` and `end`, when the loss began and ended; else None).
+(the client's records of the window's requests: op, key, offset, length,
+due, sent, done, status, bytes, on time.monotonic(); where the mix loses
+disks, each GET's also `want`, the bytes it asks for, and `degraded`,
+whether it reads a lost shard: reads_lost_shard).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from __future__ import annotations
 import statistics
 
 from benchmark import devtrace
+from benchmark.reference import codes
 
 
 def get_p95_ms(records: list[dict]) -> float | None:
@@ -42,51 +43,77 @@ def get_mibps(records: list[dict], t0: float, seconds: float) -> float | None:
     return sum(r["bytes"] for r in gets) / 2**20 / span
 
 
-# a pair is dropped where either GET was due from GUARD_BEFORE_S before the
-# loss began until GUARD_AFTER_S after it ended: those GETs wait out the
-# loss's own pause and the first decode of each shape after it
-GUARD_BEFORE_S, GUARD_AFTER_S = 0.5, 2.0
-MIN_PAIRS = 200
+def reads_lost_shard(loc: dict, offset: int, length: int | None,
+                     lost: dict[int, set[int]]) -> bool:
+    """Whether a GET of `length` bytes at `offset` (the whole object where
+    length is None) of the object stored at `loc` (its Location: code mode,
+    size, blobs by vid) asks for bytes of a data shard that a lost disk
+    held (`lost`: vid -> the volume's unit indices on the lost disks), so
+    that the gateway reconstructs them. In each blob the range touches, the
+    gateway reads only the data shards its part of the range covers."""
+    mode = codes.by_code(loc["code_mode"])
+    end = loc["size"] if length is None else offset + length
+    pos = 0
+    for blob in loc["blobs"]:
+        lo, hi = max(offset, pos) - pos, min(end, pos + blob["size"]) - pos
+        pos += blob["size"]
+        if hi > lo:
+            k = mode.shard_size(blob["size"])
+            if lost.get(blob["vid"], set()) & set(range(lo // k, (hi - 1) // k + 1)):
+                return True
+    return False
 
 
-def loss_pairs(records: list[dict], loss: dict) -> tuple[list[tuple[float, float]], int]:
-    """Each object's whole GET in the window's first half and its whole GET
-    in the second (a halved stream reads each object whole once a half), as
-    (before, after) seconds from due to last byte, a failed GET as
-    infinite; and how many such pairs the loss's guard dropped."""
-    halves: tuple[dict, dict] = ({}, {})
-    for r in records:
-        if r["op"] == "get" and r["length"] is None:
-            halves[r["due"] >= loss["split"]][r["key"]] = r
-    lo, hi = loss["start"] - GUARD_BEFORE_S, loss["end"] + GUARD_AFTER_S
-    pairs, dropped = [], 0
-    for key in sorted(halves[0].keys() & halves[1].keys()):
-        pair = (halves[0][key], halves[1][key])
-        if any(lo <= r["due"] <= hi for r in pair):
-            dropped += 1
-            continue
-        pairs.append(tuple(r["done"] - r["due"] if r["status"] == 200 else float("inf")
-                           for r in pair))
-    return pairs, dropped
+# a degraded GET's twin: a healthy GET of the same kind (whole or ranged),
+# due within TWIN_S of it, asking for a size (whole) or length (ranged)
+# within a factor TWIN_SIZE of its own
+TWIN_S, TWIN_SIZE = 2.0, 1.5
+MIN_TWINS = 120
 
 
-def get_loss_x(records: list[dict], loss: dict | None) -> float | None:
-    """What a lost disk costs a whole-object read: the median over objects
-    of its latency after the loss over its latency before it, the guard's
-    pairs left out; None under MIN_PAIRS pairs."""
-    pairs = loss_pairs(records, loss)[0] if loss else []
-    if len(pairs) < MIN_PAIRS:
+def twins(records: list[dict]) -> list[tuple[float, float]]:
+    """Each degraded GET of the window (`degraded` true, in the order they
+    were due) with its twin: of the healthy GETs of its kind due within
+    TWIN_S s and asking for a size within a factor TWIN_SIZE (`want`: the
+    object's size, or the range's length), the one due nearest in time and
+    not yet in a pair. As (degraded, healthy) seconds from due to last
+    byte, a failed GET as infinite; a degraded GET with no twin is left
+    out."""
+    gets = sorted((r for r in records if r["op"] == "get" and r.get("degraded") is not None),
+                  key=lambda r: r["due"])
+    healthy = [r for r in gets if not r["degraded"]]
+    used: set[int] = set()
+    pairs = []
+    for d in (r for r in gets if r["degraded"]):
+        cands = [i for i, h in enumerate(healthy)
+                 if i not in used and (h["length"] is None) == (d["length"] is None)
+                 and abs(h["due"] - d["due"]) <= TWIN_S
+                 and max(h["want"], d["want"]) <= TWIN_SIZE * min(h["want"], d["want"])]
+        if cands:
+            i = min(cands, key=lambda i: (abs(healthy[i]["due"] - d["due"]), i))
+            used.add(i)
+            pairs.append(tuple(r["done"] - r["due"] if r["status"] in (200, 206)
+                               else float("inf") for r in (d, healthy[i])))
+    return pairs
+
+
+def get_degraded_x(records: list[dict]) -> float | None:
+    """What the broken disk costs a read: the median over twins of the
+    degraded GET's latency over its healthy twin's; None under MIN_TWINS
+    pairs."""
+    pairs = twins(records)
+    if len(pairs) < MIN_TWINS:
         return None
-    return statistics.median(after / before for before, after in pairs)
+    return statistics.median(d / h for d, h in pairs)
 
 
-def loss_p50_ms(ctx: dict, half: int) -> float | None:
-    """Median of the paired whole-object GETs of one half (0 before the
-    loss, 1 after it), in ms."""
-    pairs = loss_pairs(ctx["records"], ctx["loss"])[0] if ctx.get("loss") else []
-    if not pairs:
+def twin_p50_ms(records: list[dict], side: int) -> float | None:
+    """Median latency of one side of the twins (0 degraded, 1 healthy), in
+    ms; None where get_degraded_x is."""
+    pairs = twins(records)
+    if len(pairs) < MIN_TWINS:
         return None
-    return statistics.median(p[half] for p in pairs) * 1e3
+    return statistics.median(p[side] for p in pairs) * 1e3
 
 
 def stage_share(ctx: dict, op: str, stages: tuple[str, ...]) -> float | None:

@@ -42,6 +42,11 @@ MODES = {m.name: m for m in (
 )}
 
 
+def by_code(code: int) -> Mode:
+    """The mode a Location names by its number."""
+    return next(m for m in MODES.values() if m.code == code)
+
+
 def pick_mode(policies: list[dict], size: int) -> Mode:
     """The policy band that holds an object of `size` bytes."""
     for p in policies:

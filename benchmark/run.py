@@ -7,9 +7,8 @@ it (`cmd.start_role`, role blobstore, on the CUDA device), with its cluster
 under the TMPDIR it is given. The cell's traffic comes from
 benchmark/client.py in a separate process over loopback HTTP: a preload
 where the mix has one, the disks the mix loses, warm-up requests for every
-shape the window uses, then the window. A mix whose GET stream has
-`halves` loses its disks inside the window instead, at the split between
-the halves, while the client keeps sending. After the window the run checks what the timed path produced against the plain reference
+shape the window uses, then the window. After the window the run checks
+what the timed path produced against the plain reference
 (benchmark/check.py) and prints one JSON line: the end-to-end metrics with
 --trace 0, the per-layer ones (spans, counters, torch.profiler) with
 --trace 1.
@@ -193,13 +192,34 @@ def host_share(a: tuple, b: tuple, seconds: float) -> str:
             f"{(b[1] - a[1]) / seconds:.2f} cores")
 
 
-def lose(cluster, victims: list[int]) -> None:
+def lose(cluster, victims: list[int]) -> dict[int, set[int]]:
+    """Lose the disks; returns the units lost (system.lost_units)."""
     if not victims:
-        return
+        return {}
     lost = system.lose_disks(cluster, victims)
     if not lost:
         raise RunError("the lost disks held no shards")
     log(f"lost disks {victims}: {lost} shards")
+    return system.lost_units(cluster, victims)
+
+
+def classify(records: list[dict], dataset: dict, lost: dict[int, set[int]]) -> None:
+    """Mark each GET with the bytes it asks for (`want`) and whether it
+    reads a shard of a lost disk (`degraded`), from the stored layout, and
+    log the shares and the twins."""
+    gets = [r for r in records if r["op"] == "get"]
+    for r in gets:
+        r["want"] = dataset["sizes"][r["key"]] if r["length"] is None else r["length"]
+        r["degraded"] = layers.reads_lost_shard(json.loads(dataset["locations"][r["key"]]),
+                                                r["offset"], r["length"], lost)
+    for kind, part in (("whole", [r for r in gets if r["length"] is None]),
+                       ("ranged", [r for r in gets if r["length"] is not None])):
+        log(f"{kind} GETs reading a lost shard: {sum(r['degraded'] for r in part)} of "
+            f"{len(part)}")
+    pairs = layers.twins(records)
+    log(f"degraded GETs with a healthy twin: {len(pairs)} "
+        f"({sum(p[0] == float('inf') for p in pairs)} failed); "
+        f"get_degraded_x {layers.get_degraded_x(records)}")
 
 
 def load_reader(name: str):
@@ -260,10 +280,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         switches = cfg.get("switches_off", []) + mix["switches_off"]
         if switches:
             system.switch_off(daemon.addr, switches)
-        victims = system.victims(cluster, mix["lose_disks"])
-        halved = any(s.get("halves") for s in mix["window"])  # lose at the split
-        if not halved:
-            lose(cluster, victims)
+        lost = lose(cluster, system.victims(cluster, mix["lose_disks"]))
         if fault is not None:
             fault(daemon)
         out, proc = client(job, workdir, "window", client_cpus, dataset=dataset,
@@ -283,14 +300,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         t_go = time.monotonic()
         proc.stdin.write("GO\n")
         proc.stdin.flush()
-        loss = None
-        if halved:  # here, while the client keeps pacing
-            time.sleep(max(0.0, t_go + seconds / 2 - time.monotonic()))
-            loss = {"start": time.monotonic()}
-            lose(cluster, victims)
-            loss["end"] = time.monotonic()
-            log(f"the loss began {loss['start'] - t_go:.3f} s into the window and took "
-                f"{loss['end'] - loss['start']:.3f} s")
         read_line(proc, "DONE", seconds + 600)
         t_done = time.monotonic()
         codec1, decoded1, clock1 = system.codec_counters(), system.decoded_bytes(), host_clock()
@@ -309,11 +318,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         log(host_share(clock0, clock1, t_done - t_go))
         log(f"window: {len(records)} requests, pacer late by at most "
             f"{result['pacer_late_s'] * 1e3:.1f} ms, last answer {t_done - t_go:.2f} s after GO")
-        if loss is not None:
-            loss["split"] = result["t0"] + seconds / 2
-            pairs, dropped = layers.loss_pairs(records, loss)
-            log(f"whole GETs paired across the loss: {len(pairs)} kept, {dropped} dropped "
-                f"by its guard; get_loss_x {layers.get_loss_x(records, loss)}")
+        if lost:
+            classify(records, dataset, lost)
 
         puts = check.check_puts(cluster, cfg["policies"], seed, records) if put_streams else None
         gets = check.check_gets(records) if any(s["op"] == "get" for s in mix["window"]) else None
@@ -328,8 +334,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
 
         if trace:
             ctx = {"spans": spans.spans, "codec": {k: codec1[k] - codec0[k] for k in codec0},
-                   "traced_s": t_done - t_go, "device": device_summary, "records": records,
-                   "loss": loss}
+                   "traced_s": t_done - t_go, "device": device_summary, "records": records}
             values = {}
             for m in metrics:
                 v = load_reader(m["name"])(ctx)

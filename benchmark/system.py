@@ -110,6 +110,17 @@ def lose_disks(cluster, disk_ids: list[int]) -> int:
     return lost
 
 
+def lost_units(cluster, disk_ids: list[int]) -> dict[int, set[int]]:
+    """vid -> the unit indices of that volume on the disks: the shards of
+    its blobs that losing the disks takes."""
+    out: dict[int, set[int]] = {}
+    for vol in list(cluster.cm.volumes.values()):
+        for i, u in enumerate(vol.units):
+            if u.disk_id in disk_ids:
+                out.setdefault(vol.vid, set()).add(i)
+    return out
+
+
 def codec_counters() -> dict:
     """The codec service's counters (process-wide registry)."""
     from chubaofs_tpu_torch.utils.exporter import registry

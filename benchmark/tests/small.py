@@ -16,7 +16,7 @@ def small_mix(cell: str, traffic_name: str | None = None) -> dict:
     mix = copy.deepcopy(traffic.load_mix(traffic_name or spec["traffic"]))
     if mix["preload"]:
         mix["preload"].update(objects=12, clients=4)
-        mix["preload"]["sizes"]["max"] = 2 << 20
+        mix["preload"]["sizes"]["max"] = 4 << 20
     for s in mix["window"]:
         if s["op"] == "put":
             s.update(rate_per_s=min(s["rate_per_s"], 3), senders=4)

@@ -2,9 +2,10 @@
 sound, and not correct with each fault it can have planted under the timed
 path (the harness's look for a card skipped: device="cpu"). The PUT faults
 run on the same cluster under the `get_healthy` mix, whose trickle of PUTs
-carries them. The disk-loss cell loses its disks halfway through its
-window, and its faults show after the loss."""
+carries them. The one-disk cell loses one disk, so its window holds
+healthy GETs beside degraded ones, and its faults show on the degraded."""
 
+import json
 import re
 
 import pytest
@@ -33,22 +34,54 @@ def test_planted_fault_is_not_correct(mix, fault):
     assert not line["correct"], line["checks"]
 
 
-LOSS_CELL = "blob_3az.get_disk_loss"
+ONE_DISK = "blob_3az.get_one_disk"
 
 
 @pytest.mark.parametrize("fault", [None, "decode_delayed"])
-def test_disk_loss_run_loses_its_disks_halfway_and_is_correct(fault, capsys):
+def test_one_disk_run_is_correct_and_classes_its_gets(fault, capsys):
     """decode_delayed slows every codec batch and must leave the run
-    correct: it controls get_loss_x's sensitivity, not `correct`."""
-    line = rehearse(LOSS_CELL, fault=fault and faults.FAULTS[fault])
-    began = re.search(r"the loss began ([0-9.]+) s into the window", capsys.readouterr().err)
-    assert began and 0.75 <= float(began.group(1)) < 0.9  # half of the 1.5 s window
+    correct: it controls get_degraded_x's sensitivity, not `correct`."""
+    line = rehearse(ONE_DISK, fault=fault and faults.FAULTS[fault])
+    err = capsys.readouterr().err
+    assert re.search(r"lost disks \[\d+\]", err)  # one disk
+    whole = re.search(r"whole GETs reading a lost shard: (\d+) of (\d+)", err)
+    assert whole and 0 < int(whole.group(1)) < int(whole.group(2))  # healthy ones left
     assert line["correct"], line["checks"]
     assert line["attempted"] > 0 and line["failed"] == 0
     assert line["checks"]["decoded_MiB"]["value"] >= 1
 
 
 @pytest.mark.parametrize("fault", FAULTS["get_degraded"])
-def test_disk_loss_planted_fault_is_not_correct(fault):
-    line = rehearse(LOSS_CELL, fault=faults.FAULTS[fault])
+def test_one_disk_planted_fault_is_not_correct(fault):
+    line = rehearse(ONE_DISK, fault=faults.FAULTS[fault])
     assert not line["correct"], line["checks"]
+
+
+def test_classes_agree_with_the_gateways_decodes(tmp_path):
+    """Every GET of a block, sent one at a time after the cell's disk is
+    lost: the layout classes it degraded exactly where the gateway's
+    decoded-bytes counter moves."""
+    from benchmark import layers, run, system, traffic
+    from benchmark.tests.small import SEED, small_mix
+
+    cfg, mix = traffic.load_config("blob_3az"), small_mix(ONE_DISK)
+    daemon = system.start_daemon(cfg, str(tmp_path / "cluster"), "cpu")
+    try:
+        cluster = system.cluster_of(daemon)
+        system.set_policies(cluster, cfg["policies"])
+        job = {"addr": daemon.addr, "seed": SEED, "mix": mix, "seconds": 1.5}
+        out, proc = run.client(job, str(tmp_path), "preload", None)
+        proc.communicate(timeout=300)
+        dataset = json.load(open(out))
+        system.switch_off(daemon.addr, cfg["switches_off"] + mix["switches_off"])
+        lost = run.lose(cluster, system.victims(cluster, 1))
+        classes, decoded = [], []
+        for g in traffic.get_block(mix["window"][0], dataset["sizes"]):
+            before = system.decoded_bytes()
+            cluster.access.get(dataset["locations"][g.key], g.offset, g.length)
+            decoded.append(system.decoded_bytes() > before)
+            classes.append(layers.reads_lost_shard(json.loads(dataset["locations"][g.key]),
+                                                   g.offset, g.length, lost))
+        assert classes == decoded and 0 < sum(classes) < len(classes)
+    finally:
+        daemon.stop()

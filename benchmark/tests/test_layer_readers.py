@@ -18,7 +18,7 @@ def ctx(**kw):
     base = {"spans": [SPAN, GET], "codec": {"batches": 4, "jobs": 10, "dispatch_s": 0.5},
             "traced_s": 10.0, "device": {"busy_s": 0.25, "window_s": 10.0},
             "records": [{"op": "get", "due": 1.0, "done": 1.0 + i / 1e3, "status": 200}
-                        for i in range(1, 101)], "loss": None}
+                        for i in range(1, 101)]}
     base.update(kw)
     return base
 
@@ -68,61 +68,92 @@ def test_get_rate_counts_every_answer_over_the_window_or_longer():
     assert layers.get_mibps([], 100.0, 4.0) is None
 
 
-# a window of 300 objects read whole once in each half: before the loss in
-# 10 ms (object k: 10 + k/100 ms), after it in 25 ms; the loss runs 50.0-50.5
-# s, the halves split at 50.0
-LOSS = {"split": 50.0, "start": 50.0, "end": 50.5}
+# a synthetic layout in EC6P6: shards of ceil(blob / 6) bytes; volume 1
+# lost its unit 2 (a data shard), volume 2 lost its unit 8 (a parity shard)
+LOST = {1: {2}, 2: {8}}
+ONE_BLOB = {"code_mode": 2, "size": 6000, "blobs": [{"vid": 1, "bid": 7, "size": 6000}]}
+# 4 MiB in volume 2, then 1 MiB in volume 1: shard 2 of the second blob is
+# bytes 4 MiB + [2 x 174763, 3 x 174763)
+TWO_BLOBS = {"code_mode": 2, "size": 5 << 20, "blobs": [
+    {"vid": 2, "bid": 8, "size": 4 << 20}, {"vid": 1, "bid": 9, "size": 1 << 20}]}
 
 
-def whole(key, due, lat_ms, status=200):
-    return {"op": "get", "key": key, "offset": 0, "length": None, "due": due,
-            "done": due + lat_ms / 1e3, "status": status}
+@pytest.mark.parametrize("loc,offset,length,want", [
+    (ONE_BLOB, 0, None, True),  # whole: every data shard
+    (ONE_BLOB, 4096, 1, True),  # the lost shard's first byte (shards of 2048 B)
+    (ONE_BLOB, 2048, 2048, False),  # shard 1 whole, ending a byte short of shard 2
+    (ONE_BLOB, 4096, 1904, True),  # shard 2 to the end
+    (ONE_BLOB, 4095, 2, True),  # shard 1's last byte and shard 2's first
+    (TWO_BLOBS, 0, None, True),  # whole: the second blob has a lost shard
+    (TWO_BLOBS, 0, 4 << 20, False),  # the first blob only: its lost unit is parity
+    (TWO_BLOBS, (4 << 20) + 2 * 174763, 1, True),
+    (TWO_BLOBS, (4 << 20) + 174763, 174763, False),  # shard 1, a byte short of shard 2
+])
+def test_lost_shard_classifier_on_a_synthetic_layout(loc, offset, length, want):
+    assert layers.reads_lost_shard(loc, offset, length, LOST) is want
 
 
-def halves(n=300, guard_keys=()):
-    """Before: due at 1 + k/10 s; after: due at 54 + k/10 s (past the
-    guard), or at 51.0 s (inside it) for the guard_keys."""
+def get(due, lat_ms, degraded, want=1000, ranged=False, status=200):
+    return {"op": "get", "key": 0, "offset": 0, "length": want if ranged else None,
+            "due": due, "done": due + lat_ms / 1e3, "status": status, "want": want,
+            "degraded": degraded}
+
+
+def window(n=250):
+    """n degraded whole GETs of 30 ms, each at 10 s + 3k s with a healthy
+    twin of 10 ms due 0.5 s later, of 1.2x its size."""
     recs = []
     for k in range(n):
-        recs.append(whole(k, 1.0 + k / 10, 10 + k / 100))
-        recs.append(whole(k, 51.0 if k in guard_keys else 54.0 + k / 10, 25.0))
-        recs.append({**whole(k, 60.0, 1.0), "offset": 5, "length": 7})  # ranged: never paired
+        recs += [get(10.0 + 3 * k, 30.0, True), get(10.5 + 3 * k, 10.0, False, want=1200)]
     return recs
 
 
-def test_loss_pairs_pair_each_objects_whole_reads_across_the_split():
-    pairs, dropped = layers.loss_pairs(halves(), LOSS)
-    assert dropped == 0 and len(pairs) == 300
-    assert pairs[7] == pytest.approx((0.01007, 0.025))
+def test_twins_pair_the_nearest_healthy_get_of_the_same_kind():
+    recs = [get(10.0, 30.0, True), get(11.9, 5.0, False), get(10.3, 8.0, False, ranged=True),
+            get(9.0, 10.0, False), get(10.2, 9.0, True, ranged=True)]
+    assert layers.twins(recs) == [(pytest.approx(0.03), pytest.approx(0.01)),
+                                  (pytest.approx(0.009), pytest.approx(0.008))]
 
 
-@pytest.mark.parametrize("due,dropped", [
-    (49.49, 0), (49.5, 1), (52.5, 1), (52.51, 0)])  # the guard: 0.5 s before, 2 s after
-def test_loss_guard_drops_pairs_due_around_the_loss(due, dropped):
-    recs = halves(n=250)
-    recs[0] = whole(0, due, 10.0) if due < LOSS["split"] else recs[0]
-    recs[1] = whole(0, due, 25.0) if due >= LOSS["split"] else recs[1]
-    pairs, got = layers.loss_pairs(recs, LOSS)
-    assert got == dropped and len(pairs) == 250 - dropped
+@pytest.mark.parametrize("gap,want", [(2.0, 1), (2.01, 0), (-2.0, 1), (-2.01, 0)])
+def test_twin_is_due_within_two_seconds(gap, want):
+    assert len(layers.twins([get(10.0, 30.0, True), get(10.0 + gap, 10.0, False)])) == want
 
 
-def test_loss_x_is_the_median_ratio_and_needs_200_pairs():
-    # ratios 25 / (10 + k/100) over k = 0..299: the median of 150 and 151
-    want = (25 / (10 + 149 / 100) + 25 / (10 + 150 / 100)) / 2
-    assert layers.get_loss_x(halves(), LOSS) == pytest.approx(want)
-    assert layers.get_loss_x(halves(), None) is None
-    assert layers.get_loss_x(halves(n=200), LOSS) is not None
-    assert layers.get_loss_x(halves(n=230, guard_keys=range(31)), LOSS) is None  # 199 left
+@pytest.mark.parametrize("size,want", [(1500, 1), (1501, 0), (667, 1), (666, 0)])
+def test_twin_asks_for_a_size_within_a_factor_of_one_and_a_half(size, want):
+    recs = [get(10.0, 30.0, True), get(10.1, 10.0, False, want=size)]
+    assert len(layers.twins(recs)) == want
+    ranged = [get(10.0, 30.0, True, ranged=True), get(10.1, 10.0, False, want=size, ranged=True)]
+    assert len(layers.twins(ranged)) == want
 
 
-def test_loss_pair_with_a_failed_read_counts_as_infinite():
-    recs = halves(n=201)
-    recs[1] = whole(0, recs[1]["due"], 25.0, status=-1)
-    assert layers.loss_pairs(recs, LOSS)[0][0] == (pytest.approx(0.01), float("inf"))
+def test_a_healthy_get_serves_one_pair():
+    """Two degraded GETs, one healthy GET near both: the first due takes it,
+    the second takes the next nearest, and a third finds none."""
+    recs = [get(10.0, 30.0, True), get(10.1, 40.0, True), get(10.2, 50.0, True),
+            get(10.05, 10.0, False), get(11.0, 20.0, False)]
+    assert layers.twins(recs) == [(pytest.approx(0.03), pytest.approx(0.01)),
+                                  (pytest.approx(0.04), pytest.approx(0.02))]
 
 
-def test_loss_medians_of_each_half():
-    c = ctx(records=halves(), loss=LOSS)
-    assert run.load_reader("client.get_before_p50_ms")(c) == pytest.approx(11.495)
-    assert run.load_reader("client.get_after_p50_ms")(c) == pytest.approx(25.0)
-    assert run.load_reader("get_loss_x")(c) == layers.get_loss_x(c["records"], LOSS)
+def test_degraded_x_is_the_median_ratio_and_needs_the_minimum_of_pairs():
+    assert layers.get_degraded_x(window()) == pytest.approx(3.0)
+    assert layers.get_degraded_x(window(layers.MIN_TWINS)) == pytest.approx(3.0)
+    assert layers.get_degraded_x(window(layers.MIN_TWINS - 1)) is None
+    unclassed = [{k: v for k, v in r.items() if k != "degraded"} for r in window()]
+    assert layers.get_degraded_x(unclassed) is None
+
+
+def test_a_failed_get_counts_as_infinite():
+    recs = window()
+    recs[0] = get(10.0, 30.0, True, status=-1)
+    assert layers.twins(recs)[0] == (float("inf"), pytest.approx(0.01))
+
+
+def test_twin_readers():
+    c = ctx(records=window())
+    assert run.load_reader("get_degraded_x")(c) == pytest.approx(3.0)
+    assert run.load_reader("client.get_degraded_p50_ms")(c) == pytest.approx(30.0)
+    assert run.load_reader("client.get_healthy_p50_ms")(c) == pytest.approx(10.0)
+    assert run.load_reader("client.get_degraded_p50_ms")(ctx()) is None

@@ -100,8 +100,8 @@ def test_refuses_without_a_card():
     assert "CUDA" in out.stderr and out.stdout.strip() == ""
 
 
-def _degraded_digest(seed: int) -> str:
-    mix = traffic.load_mix("get_degraded")
+def _plan_digest(mix_name: str, seed: int) -> str:
+    mix = traffic.load_mix(mix_name)
     data = traffic.sizes(mix["preload"]["sizes"], mix["preload"]["objects"], seed,
                          traffic.PRELOAD)
     stream = mix["window"][0]
@@ -110,40 +110,30 @@ def _degraded_digest(seed: int) -> str:
     return hashlib.sha256(repr(plan).encode()).hexdigest()
 
 
+@pytest.mark.parametrize("mix", ["get_degraded", "get_one_disk"])
 @pytest.mark.parametrize("seed,want", [
     (1, "5e513d567327156966e47c210ebc8187a4f19c0f1fef8fb06790cbaab88dc368"),
     (2**31 + 5, "6fcbfb05bb0bd02f9824fb5847b8eeeb09e6dd93a03633c3d8f2868266feece6"),
     (2147618304, "5db6ea7df9247cfd393d986f099760933df6684743d959dff5e66582dd078ff5"),
 ])
-def test_rate_stream_plan_is_unchanged_by_halves(seed, want):
+def test_get_plan_is_get_degradeds(mix, seed, want):
     """get_degraded's dataset, schedule and warm-up, digested, are what the
-    generator made before streams could have halves."""
-    assert _degraded_digest(seed) == want
+    generator has made since the benchmark began; get_one_disk sends the
+    same, so its GETs differ from get_degraded's only in the disks lost."""
+    assert _plan_digest(mix, seed) == want
 
 
-@pytest.mark.parametrize("seed", [3, 2**31 + 77])
-def test_halves_send_one_block_each(seed):
-    """A halved stream: each half of the window is one whole block in the
-    seed's order, so both halves read the same (key, offset, length) set
-    and every object once whole in each; the due times span the window."""
-    mix = traffic.load_mix("get_disk_loss")
+def test_one_disk_sends_the_same_work_for_every_seed():
+    """Another seed: other keys, order and gaps, the same 1,020
+    (object size, offset, length) GETs over the same dataset sizes."""
+    mix = traffic.load_mix("get_one_disk")
     stream = mix["window"][0]
-    data = traffic.sizes(mix["preload"]["sizes"], mix["preload"]["objects"], seed,
-                         traffic.PRELOAD)
-    sched = traffic.get_schedule(stream, data, seed, 51)
-    block = traffic.get_block(stream, data)
-    first = [(d, g) for d, g in sched if d < 25.5]
-    second = [(d, g) for d, g in sched if d >= 25.5]
-    assert len(first) == len(second) == len(block) == 512
-    key = lambda g: (g.key, g.offset, -1 if g.length is None else g.length)  # noqa: E731
-    for half in (first, second):
-        assert sorted(map(key, (g for _, g in half))) == sorted(map(key, block))
-        assert sorted(g.key for _, g in half if g.length is None) == list(range(256))
-    assert [g for _, g in first] != [g for _, g in second]
-    due = [d for d, _ in sched]
-    assert due == sorted(due) and due[0] == 0.0 and second[0][0] == 25.5 and due[-1] < 51.0
-    gaps = lambda ds, end: sorted(np.round(np.diff(ds + [end]), 9))  # noqa: E731
-    assert gaps([d for d, _ in first], 25.5) == gaps([d - 25.5 for d, _ in second], 25.5)
-    other = traffic.get_schedule(stream, data, seed + 1, 51)
-    assert [d for d, _ in other] != due and sorted(map(key, (g for _, g in other))) == \
-        sorted(map(key, (g for _, g in sched)))
+    plans = []
+    for seed in (3, 2**31 + 77):
+        data = traffic.sizes(mix["preload"]["sizes"], mix["preload"]["objects"], seed,
+                             traffic.PRELOAD)
+        sched = traffic.get_schedule(stream, data, seed, SPEC["run_seconds"])
+        plans.append((sorted(data), sorted((data[g.key], g.offset, g.length) for _, g in sched),
+                      [d for d, _ in sched]))
+    assert plans[0][:2] == plans[1][:2] and len(plans[0][1]) == 20 * 51
+    assert plans[0][2] != plans[1][2]

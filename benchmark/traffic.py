@@ -77,11 +77,7 @@ def arrivals(rate_per_s: float, seed: int, seconds: float, tag: int) -> list[flo
     """Open-loop due times from the window's start: rate x seconds arrivals
     whose gaps are the quantiles of a Poisson process's exponential gaps, in
     the seed's order, scaled to span the window exactly (the first at 0)."""
-    return spaced(max(1, round(rate_per_s * seconds)), seed, seconds, tag)
-
-
-def spaced(n: int, seed: int, seconds: float, tag: int) -> list[float]:
-    """n open-loop due times over `seconds`, as arrivals() makes them."""
+    n = max(1, round(rate_per_s * seconds))
     gaps = _rng(seed, WINDOW, tag).permutation(
         quantiles({"dist": "exponential", "mean": 1.0}, n))
     gaps *= seconds / gaps.sum()
@@ -128,16 +124,7 @@ def get_schedule(stream: dict, dataset: list[int], seed: int,
     """Open-loop GETs: (due time, request) at the stream's rate. The
     requests are whole blocks, then a share of one block that is the mix's
     and not the seed's, so every seed sends the same set of work; the seed
-    orders them and the arrival gaps.
-
-    A stream with `halves` has no rate: each half of the window sends one
-    block, so every object is read whole once in each half."""
-    if stream.get("halves"):
-        block, half = get_block(stream, dataset), seconds / 2
-        return [(h * half + d, block[i])
-                for h in (0, 1)
-                for d, i in zip(spaced(len(block), seed, half, 4 + h),
-                                _rng(seed, WINDOW, 6 + h).permutation(len(block)))]
+    orders them and the arrival gaps."""
     due = arrivals(stream["rate_per_s"], seed, seconds, 3)
     block = get_block(stream, dataset)
     reps, rest = divmod(len(due), len(block))
