@@ -3,8 +3,10 @@ reference (benchmark/reference), after the window has closed.
 
   * PUT: every acknowledged object's Location names the code mode its
     policy band gives, and every shard the blobnodes hold for each of its
-    blobs equals the reference stripe of the object's bytes; no blob lacks
-    more shards than its mode's put quorum allows.
+    blobs, local parities included, equals the reference stripe of the
+    object's bytes; every blob holds at least its mode's put quorum of its
+    global shards (the gateway counts those alone toward the quorum, after
+    CubeFS stream_put.go: local parities never satisfy it).
   * GET: every answer due in the window came, with the status and
     Content-Range asked for, and equals the object's bytes (compared by the
     client on arrival, tallied here).
@@ -44,7 +46,7 @@ def _check_put(cluster, policies, seed, rec) -> dict:
         out["blobs"] += 1
         out["shards_missing"] += missing
         out["shards_wrong"] += wrong
-        if missing > mode.total - mode.put_quorum:
+        if sum(g is not None for g in got[:mode.global_count]) < mode.put_quorum:
             out["blobs_under_quorum"] += 1
     if off != rec["size"]:
         out["mode_wrong"] = 1

@@ -6,8 +6,9 @@ The run starts the port's blobstore daemon in this process, as a user starts
 it (`cmd.start_role`, role blobstore, on the CUDA device), with its cluster
 under the TMPDIR it is given. The cell's traffic comes from
 benchmark/client.py in a separate process over loopback HTTP: a preload
-where the mix has one, the disks the mix loses, warm-up requests for every
-shape the window uses, then the window. After the window the run checks
+where the mix has one, the disks the mix loses (an AZ whole, disks picked
+by what they hold, or both), warm-up requests for every shape the window
+uses, then the window. After the window the run checks
 what the timed path produced against the plain reference
 (benchmark/check.py) and prints one JSON line: the end-to-end metrics with
 --trace 0, the per-layer ones (spans, counters, torch.profiler) with
@@ -203,6 +204,19 @@ def lose(cluster, victims: list[int]) -> dict[int, set[int]]:
     return system.lost_units(cluster, victims)
 
 
+def lose_mix(cluster, mix: dict) -> dict[int, set[int]]:
+    """What the mix loses: every disk of AZ `lose_az`, where it names one,
+    then `lose_disks` disks of the other AZs (system.victims). Returns the
+    units lost."""
+    whole = []
+    if mix.get("lose_az") is not None:
+        whole = system.az_disks(cluster, mix["lose_az"])
+        if not whole:
+            raise RunError(f"the cluster has no AZ {mix['lose_az']}")
+        log(f"lost AZ {mix['lose_az']}: {len(whole)} disks")
+    return lose(cluster, whole + system.victims(cluster, mix["lose_disks"], exclude=whole))
+
+
 def classify(records: list[dict], dataset: dict, lost: dict[int, set[int]]) -> None:
     """Mark each GET with the bytes it asks for (`want`) and whether it
     reads a shard of a lost disk (`degraded`), from the stored layout, and
@@ -231,7 +245,7 @@ def load_reader(name: str):
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             fault=None, mix: dict | None = None,
+             fault=None, mix: dict | None = None, config: dict | None = None,
              client_cpus: set[int] | None = None) -> dict:
     """One run of cell `name`; returns the result line as a dict.
 
@@ -239,9 +253,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     before the window's warm-up: the controls (benchmark/control.py,
     benchmark/tests) break the timed path with it. `mix` replaces the
     cell's mix: the CPU tests run a cell's path at a size a test can hold.
-    `client_cpus` pins the client process (split_cpus())."""
+    `config` replaces the cell's configuration, so that a test can run one
+    that no cell names. `client_cpus` pins the client process
+    (split_cpus())."""
     bench, cell = cell_spec(name)
-    cfg = traffic.load_config(cell["config"])
+    cfg = config or traffic.load_config(cell["config"])
     mix = mix or traffic.load_mix(cell["traffic"])
     put_streams = [s for s in mix["window"] if s["op"] == "put"]
     mix_max = max([s["sizes"]["max"] for s in put_streams] + [1])
@@ -280,7 +296,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         switches = cfg.get("switches_off", []) + mix["switches_off"]
         if switches:
             system.switch_off(daemon.addr, switches)
-        lost = lose(cluster, system.victims(cluster, mix["lose_disks"]))
+        lost = lose_mix(cluster, mix)
         if fault is not None:
             fault(daemon)
         out, proc = client(job, workdir, "window", client_cpus, dataset=dataset,
@@ -323,7 +339,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
 
         puts = check.check_puts(cluster, cfg["policies"], seed, records) if put_streams else None
         gets = check.check_gets(records) if any(s["op"] == "get" for s in mix["window"]) else None
-        decoded = (decoded1 - decoded0) / 2**20 if mix["lose_disks"] else None
+        decoded = (decoded1 - decoded0) / 2**20 if lost else None
         checks = check.verdict(puts, gets, decoded, check.warm_bad(result["warm"]))
         if decoded is not None:
             served = sum(r["bytes"] for r in records if r["op"] == "get") / 2**20

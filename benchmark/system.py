@@ -52,12 +52,18 @@ def set_policies(cluster, policies: list[dict]) -> None:
                                for p in policies]
 
 
-def victims(cluster, count: int) -> list[int]:
+def az_disks(cluster, az: int) -> list[int]:
+    """Every disk of one AZ, by id."""
+    return sorted(d.disk_id for d in cluster.cm.disks.values() if d.az == az)
+
+
+def victims(cluster, count: int, exclude: list[int] = ()) -> list[int]:
     """`count` disks to lose, picked by what they hold: each in turn, in the
     next AZ and on a node not picked yet, the disk holding the most
     data-shard bytes of blobs that no disk picked so far touches (ties to
     the lowest disk id). So the lost disks reach as many stored blobs as
-    they can, whatever volumes the preload filled."""
+    they can, whatever volumes the preload filled. Disks in `exclude` (an
+    AZ lost whole) are never picked, and their AZ takes no turn."""
     from chubaofs_tpu_torch.blobstore.blobnode import NoSuchShard
 
     held: dict[int, dict[tuple[int, int], int]] = {}  # disk -> (vid, bid) -> bytes
@@ -72,7 +78,8 @@ def victims(cluster, count: int) -> list[int]:
             for m in metas:
                 if u.index < n:
                     disk[(vol.vid, m.bid)] = m.size
-    disks = sorted(cluster.cm.disks.values(), key=lambda d: d.disk_id)
+    disks = sorted((d for d in cluster.cm.disks.values() if d.disk_id not in exclude),
+                   key=lambda d: d.disk_id)
     azs = sorted({d.az for d in disks})
     out, nodes, reached = [], set(), set()
     for i in range(count):

@@ -26,12 +26,16 @@ def small_mix(cell: str, traffic_name: str | None = None) -> dict:
     return mix
 
 
-def rehearse(cell: str, fault=None, seed: int = SEED, traffic_name: str | None = None) -> dict:
+def rehearse(cell: str, fault=None, seed: int = SEED, traffic_name: str | None = None,
+             config: dict | None = None, mix: dict | None = None) -> dict:
+    """One run of the cell's path on the host: under the cell's small mix (or
+    `traffic_name`'s, or `mix` as given) and its configuration (or
+    `config`)."""
     from benchmark import faults
 
     try:
         return run.run_cell(cell, seed, 1.5, False, device="cpu", fault=fault,
-                            mix=small_mix(cell, traffic_name))
+                            mix=mix or small_mix(cell, traffic_name), config=config)
     finally:
         faults.restore()
 

@@ -2,7 +2,8 @@
 the requests of a run.
 
 A mix (`benchmark/mixes/<name>.json`) names a preload, the disks a run
-loses, the task switches it turns off and the streams of its window. Every
+loses (and the AZ it loses whole, under `lose_az`), the task switches it
+turns off and the streams of its window. Every
 seed gets the same set of work in another order: sizes, arrival gaps and
 ranges are fixed quantiles of the mix's distributions, and the seed only
 permutes them, picks the keys and makes the bytes. So two seeds differ in
