@@ -1027,8 +1027,15 @@ class Access:
         launches a hedge replacement while the original keeps running (slow-
         but-alive may still answer first) — so unselected candidates (the
         parity tail of the list) are never fetched unless a selected read
-        lets the gather down. Returns (idx -> bytes, failed idxs)."""
+        lets the gather down. Returns (idx -> bytes, failed idxs).
+
+        Every read launched to replace another (after a failure, or as a
+        hedge after a hang) is counted in `gather_replaced` by cause and
+        gives the request's span one `gather.replace` stage, from its launch
+        to its answer (to the gather's end, for one abandoned)."""
         from concurrent.futures import FIRST_COMPLETED, wait
+
+        from chubaofs_tpu_torch.blobstore import trace
 
         got: dict[int, bytes] = {}
         failures: list[int] = []
@@ -1037,19 +1044,31 @@ class Access:
         pending: dict = {}
         launched: dict = {}  # future -> launch time (hang-hedge input)
         hedged: set = set()  # futures already replaced for being slow
+        replacing: dict = {}  # replacement future -> perf_counter at launch
         next_i = 0
 
+        span = trace.current_span()
         reads = _ReadWaits(self._read_pool)
 
-        def launch(count: int = 1) -> None:
-            """The next `count` candidates' reads, submitted together."""
+        def launch(count: int = 1, cause: str | None = None) -> None:
+            """The next `count` candidates' reads, submitted together;
+            `cause` names what a replacement read replaces."""
             nonlocal next_i
             idxs = candidates[next_i:next_i + count]
             next_i += len(idxs)
             futs = reads.submit(self._read_shard, [(vol, idx, bid, lo, n) for idx in idxs])
+            t_launch = time.perf_counter()
             for idx, f in zip(idxs, futs):
                 pending[f] = idx
                 launched[f] = time.monotonic()
+                if cause is not None:
+                    replacing[f] = t_launch
+                    registry("access").counter("gather_replaced", {"cause": cause}).add()
+
+        def replaced(fut, t_end: float) -> None:
+            t_launch = replacing.pop(fut, None)
+            if t_launch is not None and span is not None:
+                span.add_stage("gather.replace", start=t_launch, dur=t_end - t_launch)
 
         launch(min(needed, len(candidates)))
         # overall gather budget: stragglers can be slow-but-alive, so this
@@ -1080,11 +1099,13 @@ class Access:
                             or now - launched[f] < self.read_deadline):
                         continue
                     hedged.add(f)
-                    launch()
+                    launch(cause="slow")
                 continue
+            t_done = time.perf_counter()
             for fut in done:
                 idx = pending.pop(fut)
                 launched.pop(fut, None)
+                replaced(fut, t_done)
                 was_hedged = fut in hedged  # replacement already launched
                 hedged.discard(fut)
                 data = fut.result()
@@ -1093,9 +1114,11 @@ class Access:
                 else:
                     failures.append(idx)
                     if not was_hedged:
-                        launch()  # keep gather depth
+                        launch(cause="failed")  # keep gather depth
+        t_end = time.perf_counter()
         for fut in pending:  # abandon stragglers (queued ones cancel cleanly)
             fut.cancel()
+            replaced(fut, t_end)
         reads.close()
         return got, failures
 
