@@ -19,10 +19,10 @@ card at a cell's own size, benchmark/tests on the host at a small one.
   * half_batch: the codec computes only the first half of each device batch
     and leaves the rest zero.
   * state_unchanged: a shard write returns without storing anything.
-  * decode_delayed: every codec batch sleeps 3 ms before its call, and
-    computes the right answer. A control of get_degraded_x's sensitivity
-    (a slower decode has to raise it), not of `correct`: a run with it must
-    come out correct.
+  * decode_delayed, decode_delayed_1ms: every codec batch sleeps 3 ms (1
+    ms) before its call, and computes the right answer. Controls of
+    get_degraded_x's sensitivity (a slower decode has to raise it), not of
+    `correct`: a run with either must come out correct.
 """
 
 from __future__ import annotations
@@ -108,9 +108,13 @@ def decode_delayed(daemon) -> None:
     _patch_batches(lambda out: None, delay_s=0.003)
 
 
+def decode_delayed_1ms(daemon) -> None:
+    _patch_batches(lambda out: None, delay_s=0.001)
+
+
 FAULTS = {f.__name__: f for f in (parity_unwritten, decode_skipped, shard_altered,
                                   answer_altered, half_batch, state_unchanged,
-                                  decode_delayed)}
+                                  decode_delayed, decode_delayed_1ms)}
 
 
 def restore() -> None:

@@ -16,6 +16,7 @@ whether it reads a lost shard: reads_lost_shard).
 
 from __future__ import annotations
 
+import math
 import statistics
 
 from benchmark import devtrace
@@ -64,54 +65,82 @@ def reads_lost_shard(loc: dict, offset: int, length: int | None,
     return False
 
 
-# a degraded GET's twin: a healthy GET of the same kind (whole or ranged),
-# due within TWIN_S of it, asking for a size (whole) or length (ranged)
-# within a factor TWIN_SIZE of its own
-TWIN_S, TWIN_SIZE = 2.0, 1.5
-MIN_TWINS = 120
+# a degraded GET's healthy baseline: the median latency of up to NEIGHBOURS
+# healthy GETs of its kind (whole or ranged), due within NEAR_S of it and
+# asking for a size (whole) or length (ranged) within a factor NEAR_SIZE of
+# its own, nearest in log size first; the ratio is a trimmed geometric mean
+# that drops TRIM_PCT percent of the log ratios at each end. MIN_BASELINED:
+# the fewest degraded GETs with a baseline in 12 runs of get_one_disk on an
+# H100 (203), less a quarter, rounded down to a multiple of ten.
+NEAR_S, NEAR_SIZE, NEIGHBOURS, TRIM_PCT = 2.0, 1.5, 3, 10
+MIN_BASELINED = 150
 
 
-def twins(records: list[dict]) -> list[tuple[float, float]]:
+def latency(r: dict) -> float:
+    """Seconds from due to last byte; a failed GET as infinite."""
+    return r["done"] - r["due"] if r["status"] in (200, 206) else math.inf
+
+
+def baselined(records: list[dict]) -> list[tuple[float, float]]:
     """Each degraded GET of the window (`degraded` true, in the order they
-    were due) with its twin: of the healthy GETs of its kind due within
-    TWIN_S s and asking for a size within a factor TWIN_SIZE (`want`: the
-    object's size, or the range's length), the one due nearest in time and
-    not yet in a pair. As (degraded, healthy) seconds from due to last
-    byte, a failed GET as infinite; a degraded GET with no twin is left
-    out."""
+    were due), answered or failed, with its healthy baseline: the median
+    latency of up to NEIGHBOURS healthy GETs of its kind due within NEAR_S
+    s and asking for a size within a factor NEAR_SIZE (`want`: the object's
+    size, or the range's length), taken nearest in log size first, then
+    nearest in time; a healthy GET may serve several degraded ones. As
+    (degraded, baseline) seconds; a degraded GET with no healthy neighbour
+    is left out."""
     gets = sorted((r for r in records if r["op"] == "get" and r.get("degraded") is not None),
                   key=lambda r: r["due"])
     healthy = [r for r in gets if not r["degraded"]]
-    used: set[int] = set()
-    pairs = []
+    out = []
     for d in (r for r in gets if r["degraded"]):
-        cands = [i for i, h in enumerate(healthy)
-                 if i not in used and (h["length"] is None) == (d["length"] is None)
-                 and abs(h["due"] - d["due"]) <= TWIN_S
-                 and max(h["want"], d["want"]) <= TWIN_SIZE * min(h["want"], d["want"])]
-        if cands:
-            i = min(cands, key=lambda i: (abs(healthy[i]["due"] - d["due"]), i))
-            used.add(i)
-            pairs.append(tuple(r["done"] - r["due"] if r["status"] in (200, 206)
-                               else float("inf") for r in (d, healthy[i])))
-    return pairs
+        near = [h for h in healthy
+                if (h["length"] is None) == (d["length"] is None)
+                and abs(h["due"] - d["due"]) <= NEAR_S
+                and max(h["want"], d["want"]) <= NEAR_SIZE * min(h["want"], d["want"])]
+        near.sort(key=lambda h: (abs(math.log(h["want"] / d["want"])), abs(h["due"] - d["due"])))
+        if near:
+            out.append((latency(d), statistics.median(latency(h) for h in near[:NEIGHBOURS])))
+    return out
+
+
+def trimmed_geomean(ratios: list[float]) -> float:
+    """exp of the mean of the log ratios left after dropping TRIM_PCT
+    percent (rounded down) at each end; an infinite ratio (a failed
+    degraded GET) sorts into the top tail, so past that share it reads
+    inf."""
+    logs = sorted(math.log(x) if x > 0 else -math.inf for x in ratios)
+    k = len(logs) * TRIM_PCT // 100
+    kept = logs[k:len(logs) - k]
+    if kept[-1] == math.inf:
+        return math.inf
+    return math.exp(statistics.fmean(kept))
+
+
+def lost_disk_ratio(records: list[dict]) -> tuple[float | None, int]:
+    """The trimmed geometric mean over degraded GETs of their latency over
+    their healthy baseline (a failed degraded GET as an infinite ratio),
+    and the number of degraded GETs with a baseline; None where none has
+    one."""
+    pairs = baselined(records)
+    if not pairs:
+        return None, 0
+    return trimmed_geomean([math.inf if d == math.inf else d / b for d, b in pairs]), len(pairs)
 
 
 def get_degraded_x(records: list[dict]) -> float | None:
-    """What the broken disk costs a read: the median over twins of the
-    degraded GET's latency over its healthy twin's; None under MIN_TWINS
-    pairs."""
-    pairs = twins(records)
-    if len(pairs) < MIN_TWINS:
-        return None
-    return statistics.median(d / h for d, h in pairs)
+    """What the broken disk costs a read: lost_disk_ratio, None under
+    MIN_BASELINED degraded GETs with a baseline."""
+    x, n = lost_disk_ratio(records)
+    return x if n >= MIN_BASELINED else None
 
 
-def twin_p50_ms(records: list[dict], side: int) -> float | None:
-    """Median latency of one side of the twins (0 degraded, 1 healthy), in
-    ms; None where get_degraded_x is."""
-    pairs = twins(records)
-    if len(pairs) < MIN_TWINS:
+def baselined_p50_ms(records: list[dict], side: int) -> float | None:
+    """Median of one side of get_degraded_x's pairs (0 the degraded GETs,
+    1 their baselines), in ms; None where get_degraded_x is."""
+    pairs = baselined(records)
+    if len(pairs) < MIN_BASELINED:
         return None
     return statistics.median(p[side] for p in pairs) * 1e3
 

@@ -220,7 +220,7 @@ def lose_mix(cluster, mix: dict) -> dict[int, set[int]]:
 def classify(records: list[dict], dataset: dict, lost: dict[int, set[int]]) -> None:
     """Mark each GET with the bytes it asks for (`want`) and whether it
     reads a shard of a lost disk (`degraded`), from the stored layout, and
-    log the shares and the twins."""
+    log the shares and the baselines."""
     gets = [r for r in records if r["op"] == "get"]
     for r in gets:
         r["want"] = dataset["sizes"][r["key"]] if r["length"] is None else r["length"]
@@ -230,8 +230,8 @@ def classify(records: list[dict], dataset: dict, lost: dict[int, set[int]]) -> N
                        ("ranged", [r for r in gets if r["length"] is not None])):
         log(f"{kind} GETs reading a lost shard: {sum(r['degraded'] for r in part)} of "
             f"{len(part)}")
-    pairs = layers.twins(records)
-    log(f"degraded GETs with a healthy twin: {len(pairs)} "
+    pairs = layers.baselined(records)
+    log(f"degraded GETs with a healthy baseline: {len(pairs)} "
         f"({sum(p[0] == float('inf') for p in pairs)} failed); "
         f"get_degraded_x {layers.get_degraded_x(records)}")
 

@@ -37,10 +37,11 @@ def test_planted_fault_is_not_correct(mix, fault):
 ONE_DISK = "blob_3az.get_one_disk"
 
 
-@pytest.mark.parametrize("fault", [None, "decode_delayed"])
+@pytest.mark.parametrize("fault", [None, "decode_delayed", "decode_delayed_1ms"])
 def test_one_disk_run_is_correct_and_classes_its_gets(fault, capsys):
-    """decode_delayed slows every codec batch and must leave the run
-    correct: it controls get_degraded_x's sensitivity, not `correct`."""
+    """decode_delayed and decode_delayed_1ms slow every codec batch and must
+    leave the run correct: they control get_degraded_x's sensitivity, not
+    `correct`."""
     line = rehearse(ONE_DISK, fault=fault and faults.FAULTS[fault])
     err = capsys.readouterr().err
     assert re.search(r"lost disks \[\d+\]", err)  # one disk

@@ -99,61 +99,97 @@ def get(due, lat_ms, degraded, want=1000, ranged=False, status=200):
             "degraded": degraded}
 
 
-def window(n=250):
-    """n degraded whole GETs of 30 ms, each at 10 s + 3k s with a healthy
-    twin of 10 ms due 0.5 s later, of 1.2x its size."""
+def window(n=60, k=3.0, slow=None):
+    """n degraded whole GETs, each at 10 s + 2j s with three healthy
+    neighbours of its size due 0.1-0.3 s after it, the neighbours taking
+    5-11 ms and the degraded GET k times theirs; `slow` (lo, hi) makes every
+    GET due in those seconds 3x slower."""
     recs = []
-    for k in range(n):
-        recs += [get(10.0 + 3 * k, 30.0, True), get(10.5 + 3 * k, 10.0, False, want=1200)]
+    for j in range(n):
+        t, base = 10.0 + 2 * j, 5.0 + j % 7
+        recs += [get(t, k * base, True)] + [get(t + dt, base, False) for dt in (0.1, 0.2, 0.3)]
+    if slow:
+        for r in recs:
+            if slow[0] <= r["due"] < slow[1]:
+                r["done"] = r["due"] + 3 * (r["done"] - r["due"])
     return recs
 
 
-def test_twins_pair_the_nearest_healthy_get_of_the_same_kind():
-    recs = [get(10.0, 30.0, True), get(11.9, 5.0, False), get(10.3, 8.0, False, ranged=True),
-            get(9.0, 10.0, False), get(10.2, 9.0, True, ranged=True)]
-    assert layers.twins(recs) == [(pytest.approx(0.03), pytest.approx(0.01)),
-                                  (pytest.approx(0.009), pytest.approx(0.008))]
+def failed(recs, n):
+    """recs with its first n degraded GETs failed."""
+    out, left = [], n
+    for r in recs:
+        if r["degraded"] and left:
+            r, left = {**r, "status": -1}, left - 1
+        out.append(r)
+    return out
 
 
-@pytest.mark.parametrize("gap,want", [(2.0, 1), (2.01, 0), (-2.0, 1), (-2.01, 0)])
-def test_twin_is_due_within_two_seconds(gap, want):
-    assert len(layers.twins([get(10.0, 30.0, True), get(10.0 + gap, 10.0, False)])) == want
+ONE = get(10.0, 30.0, True)
+INF = float("inf")
+CASES = {
+    # each degraded GET k times its size-matched neighbours
+    "k_times_its_neighbours": (window(k=2.5), 2.5, 60),
+    # one 5 s episode of a 3x slower host: each ratio's two sides slow together
+    "a_slow_episode_cancels": (window(k=2.5, slow=(20.0, 25.0)), 2.5, 60),
+    # a neighbour is due within 2 s, before or after
+    "due_2s_after": ([ONE, get(12.0, 10.0, False)], 3.0, 1),
+    "due_2.01s_after": ([ONE, get(12.01, 10.0, False)], None, 0),
+    "due_2s_before": ([ONE, get(8.0, 10.0, False)], 3.0, 1),
+    "due_2.01s_before": ([ONE, get(7.99, 10.0, False)], None, 0),
+    # ... of a size (whole) or length (ranged) within 1.5x of the degraded GET's
+    **{f"{kind}_size_{size}": ([get(10.0, 30.0, True, ranged=kind == "ranged"),
+                                get(10.1, 10.0, False, want=size, ranged=kind == "ranged")],
+                               3.0 if n else None, n)
+       for kind in ("whole", "ranged") for size, n in ((1500, 1), (1501, 0), (667, 1), (666, 0))},
+    # ... and of its kind: a range is no whole GET's neighbour
+    "of_its_kind": ([ONE, get(10.1, 10.0, False, ranged=True)], None, 0),
+    # the 3 nearest in log size (10, 20, 20 ms: median 20), not the nearest
+    # in time (the 5 ms one of 1.4x, due at once)
+    "nearest_in_size_first": ([get(10.0, 60.0, True), get(10.0, 5.0, False, want=1400),
+                               get(10.5, 10.0, False), get(11.0, 20.0, False, want=1050),
+                               get(11.9, 20.0, False, want=950)], 3.0, 1),
+    # one healthy GET serves two degraded ones: ratios 3 and 6
+    "a_neighbour_serves_several": ([ONE, get(10.2, 60.0, True), get(10.1, 10.0, False)],
+                                   18 ** 0.5, 2),
+    # 6 of 60 failed: the top tenth, trimmed
+    "failed_within_the_trim": (failed(window(), 6), 3.0, 60),
+    # 7 of 60 failed: past the trimmed tenth
+    "failed_past_the_trim": (failed(window(), 7), INF, 60),
+}
 
 
-@pytest.mark.parametrize("size,want", [(1500, 1), (1501, 0), (667, 1), (666, 0)])
-def test_twin_asks_for_a_size_within_a_factor_of_one_and_a_half(size, want):
-    recs = [get(10.0, 30.0, True), get(10.1, 10.0, False, want=size)]
-    assert len(layers.twins(recs)) == want
-    ranged = [get(10.0, 30.0, True, ranged=True), get(10.1, 10.0, False, want=size, ranged=True)]
-    assert len(layers.twins(ranged)) == want
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lost_disk_ratio(case):
+    recs, value, count = CASES[case]
+    x, n = layers.lost_disk_ratio(recs)
+    assert n == count
+    assert x == (value if value in (None, INF) else pytest.approx(value))
 
 
-def test_a_healthy_get_serves_one_pair():
-    """Two degraded GETs, one healthy GET near both: the first due takes it,
-    the second takes the next nearest, and a third finds none."""
-    recs = [get(10.0, 30.0, True), get(10.1, 40.0, True), get(10.2, 50.0, True),
-            get(10.05, 10.0, False), get(11.0, 20.0, False)]
-    assert layers.twins(recs) == [(pytest.approx(0.03), pytest.approx(0.01)),
-                                  (pytest.approx(0.04), pytest.approx(0.02))]
+def test_a_failed_degraded_get_raises_it():
+    """Ratios that differ: one failed degraded GET sorts to the top, so the
+    kept tenths move up."""
+    recs = [r for j in range(30)
+            for r in (get(10.0 + 2 * j, 10.0 * (j + 1), True), get(10.1 + 2 * j, 10.0, False))]
+    assert layers.lost_disk_ratio(failed(recs, 1))[0] > layers.lost_disk_ratio(recs)[0]
 
 
-def test_degraded_x_is_the_median_ratio_and_needs_the_minimum_of_pairs():
-    assert layers.get_degraded_x(window()) == pytest.approx(3.0)
-    assert layers.get_degraded_x(window(layers.MIN_TWINS)) == pytest.approx(3.0)
-    assert layers.get_degraded_x(window(layers.MIN_TWINS - 1)) is None
-    unclassed = [{k: v for k, v in r.items() if k != "degraded"} for r in window()]
+def test_degraded_x_needs_the_minimum_of_degraded_gets_with_a_baseline():
+    least = layers.MIN_BASELINED
+    assert layers.get_degraded_x(window(least)) == pytest.approx(3.0)
+    assert layers.get_degraded_x(window(least - 1)) is None
+    assert layers.baselined_p50_ms(window(least - 1), 0) is None
+    unclassed = [{k: v for k, v in r.items() if k != "degraded"} for r in window(least)]
     assert layers.get_degraded_x(unclassed) is None
 
 
-def test_a_failed_get_counts_as_infinite():
-    recs = window()
-    recs[0] = get(10.0, 30.0, True, status=-1)
-    assert layers.twins(recs)[0] == (float("inf"), pytest.approx(0.01))
-
-
-def test_twin_readers():
-    c = ctx(records=window())
+def test_baselined_readers():
+    """get_degraded_x and each side's median over the degraded GETs with a
+    baseline: window()'s neighbours take 5-11 ms, the degraded GETs 3x as
+    long."""
+    c = ctx(records=window(layers.MIN_BASELINED))
     assert run.load_reader("get_degraded_x")(c) == pytest.approx(3.0)
-    assert run.load_reader("client.get_degraded_p50_ms")(c) == pytest.approx(30.0)
-    assert run.load_reader("client.get_healthy_p50_ms")(c) == pytest.approx(10.0)
+    assert run.load_reader("client.get_degraded_p50_ms")(c) == pytest.approx(24.0)
+    assert run.load_reader("client.get_healthy_p50_ms")(c) == pytest.approx(8.0)
     assert run.load_reader("client.get_degraded_p50_ms")(ctx()) is None
