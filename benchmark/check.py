@@ -13,11 +13,15 @@ reference (benchmark/reference), after the window has closed.
 
 Every number is an exact count with the limit 0; a degraded mix also has to
 have decoded on the fly (a lower limit), or it did not read what it says.
+A mix of range pairs decodes exactly the bytes its degraded halves ask
+for, no more and no fewer: each half, window by window, and nothing served
+from a decode made before.
 """
 
 from __future__ import annotations
 
 import json
+import math
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -78,10 +82,18 @@ def warm_bad(records: list[dict]) -> int:
     return sum(1 for r in records if r["status"] not in (200, 206) or not r.get("ok", True))
 
 
+def degraded_halves_bytes(records: list[dict]) -> int | None:
+    """The bytes the window's range-pair halves over a lost shard ask for,
+    or None where the window has no range pairs."""
+    halves = [r for r in records if r["op"] == "get" and r.get("role") is not None]
+    return sum(r["length"] for r in halves if r["role"] == "degraded") if halves else None
+
+
 def verdict(puts: dict | None, gets: dict | None, decoded_mib: float | None,
-            warm_bad: int) -> dict:
-    """name -> {"value", "max" or "min"}: every number compared, with its
-    limit."""
+            warm_bad: int, decoded_b: int | None = None,
+            degraded_halves_b: int | None = None) -> dict:
+    """name -> {"value", and "max", "min" or both}: every number compared,
+    with its limit."""
     checks = {"warmup_bad": {"value": warm_bad, "max": 0}}
     if puts is not None:
         for k in ("failed", "mode_wrong", "shards_wrong", "blobs_under_quorum"):
@@ -91,9 +103,12 @@ def verdict(puts: dict | None, gets: dict | None, decoded_mib: float | None,
             checks[f"get_{k}"] = {"value": gets[k], "max": 0}
     if decoded_mib is not None:
         checks["decoded_MiB"] = {"value": decoded_mib, "min": 1}
+    if degraded_halves_b is not None:
+        checks["decoded_B"] = {"value": decoded_b, "min": degraded_halves_b,
+                               "max": degraded_halves_b}
     return checks
 
 
 def passed(checks: dict) -> bool:
-    return all((c["value"] <= c["max"]) if "max" in c else (c["value"] >= c["min"])
+    return all(c["value"] <= c.get("max", math.inf) and c["value"] >= c.get("min", -math.inf)
                for c in checks.values())

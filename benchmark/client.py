@@ -11,8 +11,10 @@ gateway's documented surface over loopback and imports nothing of the port.
     object's Location;
   * `window`: make the window's payloads, send the warm-up requests, print
     READY, wait for GO on stdin, then drive the mix's streams for `seconds`
-    (open-loop PUTs and GETs, each paced from its schedule), wait for every
-    request issued, write one record per request and print DONE.
+    (open-loop PUTs, GETs and range pairs, each paced from its schedule; a
+    range_pairs stream carries its `plan`, which the run builds from the
+    stored layout after the loss), wait for every request issued, write one
+    record per request and print DONE.
 
 Every time is time.monotonic(), which all processes of the host share.
 Every GET answer is compared with the object's bytes when it arrives; the
@@ -29,6 +31,7 @@ import sys
 import threading
 import time
 import urllib.parse
+from dataclasses import asdict
 
 import numpy as np
 
@@ -179,7 +182,13 @@ class GetStream:
         self.locs = job["dataset"]["locations"]
         self.data = [traffic.payload(job["seed"], traffic.PRELOAD, k, s)
                       for k, s in enumerate(self.sizes)]
-        self.sched = traffic.get_schedule(stream, self.sizes, job["seed"], job["seconds"])
+        self.sched, self.warm_reqs = self.plan()
+
+    def plan(self) -> tuple[list, list]:
+        """(the window's (due time, request) schedule, the warm-up GETs)."""
+        seed = self.job["seed"]
+        return (traffic.get_schedule(self.stream, self.sizes, seed, self.job["seconds"]),
+                traffic.warm_gets(self.stream, self.sizes, seed))
 
     def _one(self, conn: Conn, g: traffic.Get, records: list, due: float | None = None) -> None:
         sent = time.monotonic()
@@ -195,15 +204,14 @@ class GetStream:
               and headers.get("Content-Range") == want_range
               and np.array_equal(np.frombuffer(body, np.uint8), self.data[g.key][lo:hi]))
         served = status in (200, 206)
-        records.append({"op": "get", "key": g.key, "offset": g.offset, "length": g.length,
+        records.append({"op": "get", **asdict(g),
                         "due": sent if due is None else due, "sent": sent, "done": done,
                         "status": status, "bytes": len(body) if served else 0, "ok": bool(ok),
                         "err": None if served else body[:300].decode("utf-8", "replace")})
 
     def warm(self, records: list) -> None:
         """The warm-up GETs, `senders` at a time."""
-        reqs = traffic.warm_gets(self.stream, self.sizes, self.job["seed"])
-        senders = self.stream["senders"]
+        reqs, senders = self.warm_reqs, self.stream["senders"]
 
         def client(i: int):
             conn = Conn(self.job["addr"])
@@ -217,7 +225,18 @@ class GetStream:
                      lambda conn, g, due: self._one(conn, g, records, due))
 
 
-STREAMS = {"put": PutStream, "get": GetStream}
+class PairStream(GetStream):
+    """Range pairs over the preloaded dataset (traffic.range_pairs): the two
+    halves of a pair, due at once, go to two senders back to back; each
+    half's record carries its pair and role."""
+
+    def plan(self) -> tuple[list, list]:
+        plan = self.stream["plan"]
+        return ([(due, traffic.Half(**h)) for due, h in plan["window"]],
+                [traffic.Half(**h) for h in plan["warm"]])
+
+
+STREAMS = {"put": PutStream, "get": GetStream, "range_pairs": PairStream}
 
 
 def window(job: dict) -> None:

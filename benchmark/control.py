@@ -10,10 +10,12 @@ beside their limits, and its metrics (end to end, or per layer with
 --trace 1), as one JSON line; its `setup_s` counts from this process's
 start, so past the first run it is not a run's set-up. Every fault's line
 must read correct false. `decode_delayed`'s (3 ms before every codec
-batch) and `decode_delayed_1ms`'s must read correct true, and
-`get_degraded_x` (per layer, so with --trace 1) higher than the same seed's
-line under `clean`, which plants nothing. The benchmark's own runs never
-run this.
+batch) and `decode_delayed_1ms`'s must read correct true, and a read-path
+ratio higher than the same seed's line under `clean`, which plants
+nothing: `get_degraded_x` in blob_3az.get_one_disk, `get_range_lost_x` in
+blob_3az.get_range_pairs (both per layer: in the line with --trace 1, and
+in each run's log on standard error either way). The benchmark's own runs
+never run this.
 """
 
 from __future__ import annotations

@@ -19,6 +19,10 @@ card at a cell's own size, benchmark/tests on the host at a small one.
   * half_batch: the codec computes only the first half of each device batch
     and leaves the rest zero.
   * state_unchanged: a shard write returns without storing anything.
+  * full_stripe_decode (control of the range-pair cells' decoded bytes):
+    every degraded read skips the windowed decode and takes the gateway's
+    full-stripe path, so each answer is right but more is decoded than the
+    degraded halves ask for.
   * decode_delayed, decode_delayed_1ms: every codec batch sleeps 3 ms (1
     ms) before its call, and computes the right answer. Controls of
     get_degraded_x's sensitivity (a slower decode has to raise it), not of
@@ -104,6 +108,13 @@ def half_batch(daemon) -> None:
     _patch_batches(drop)
 
 
+def full_stripe_decode(daemon) -> None:
+    from chubaofs_tpu_torch.blobstore.access import Access
+
+    _REAL.setdefault("window", Access._degraded_window)
+    Access._degraded_window = lambda self, *args: None
+
+
 def decode_delayed(daemon) -> None:
     _patch_batches(lambda out: None, delay_s=0.003)
 
@@ -114,12 +125,15 @@ def decode_delayed_1ms(daemon) -> None:
 
 FAULTS = {f.__name__: f for f in (parity_unwritten, decode_skipped, shard_altered,
                                   answer_altered, half_batch, state_unchanged,
-                                  decode_delayed, decode_delayed_1ms)}
+                                  full_stripe_decode, decode_delayed, decode_delayed_1ms)}
 
 
 def restore() -> None:
-    """Undo a batch patch (node patches die with their daemon)."""
+    """Undo a batch or gateway patch (node patches die with their daemon)."""
+    from chubaofs_tpu_torch.blobstore.access import Access
     from chubaofs_tpu_torch.ops import rs
 
     if "hostbatch" in _REAL:
         rs.gf_matmul_hostbatch = _REAL.pop("hostbatch")
+    if "window" in _REAL:
+        Access._degraded_window = _REAL.pop("window")

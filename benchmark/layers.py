@@ -11,7 +11,8 @@ answer), `device` (devtrace.DeviceTrace.stop(), or None) and `records`
 (the client's records of the window's requests: op, key, offset, length,
 due, sent, done, status, bytes, on time.monotonic(); where the mix loses
 disks, each GET's also `want`, the bytes it asks for, and `degraded`,
-whether it reads a lost shard: reads_lost_shard).
+whether it reads a lost shard: reads_lost_shard; a range pair's halves
+also `pair` and `role`: traffic.range_pairs).
 """
 
 from __future__ import annotations
@@ -141,6 +142,49 @@ def baselined_p50_ms(records: list[dict], side: int) -> float | None:
     1 their baselines), in ms; None where get_degraded_x is."""
     pairs = baselined(records)
     if len(pairs) < MIN_BASELINED:
+        return None
+    return statistics.median(p[side] for p in pairs) * 1e3
+
+
+# Range pairs (traffic.range_pairs): each pair's degraded and healthy halves
+# read the same blob, length and in-shard offset, due at the same instant,
+# so the host's moment, the bytes and the blob cancel out of a pair's
+# ratio, and what is left is the degraded path (the failed direct read, the
+# windowed survivor gather, which also reads the healthy half's shard, the
+# codec's queue, dispatch and decode). MIN_PAIRS: the
+# fewest pairs in the 12 runs of the cell's two sets on an H100 (510, every
+# pair of a 51 s window at 10 a second), less a quarter, rounded down to a
+# multiple of ten.
+MIN_PAIRS = 380
+
+
+def pair_latencies(records: list[dict]) -> list[tuple[float, float]]:
+    """(degraded, healthy) seconds, due to last byte, of each range pair of
+    the window with both halves recorded, by pair; a failed half as
+    infinite."""
+    halves: dict[int, dict[str, float]] = {}
+    for r in records:
+        if r["op"] == "get" and r.get("pair") is not None:
+            halves.setdefault(r["pair"], {})[r["role"]] = latency(r)
+    return [(h["degraded"], h["healthy"]) for _, h in sorted(halves.items()) if len(h) == 2]
+
+
+def get_range_lost_x(records: list[dict]) -> float | None:
+    """R: the trimmed geometric mean over range pairs of degraded over
+    healthy latency (a failed degraded half as an infinite ratio, a failed
+    healthy half beside an answered degraded one as 0); None under
+    MIN_PAIRS."""
+    pairs = pair_latencies(records)
+    if len(pairs) < MIN_PAIRS:
+        return None
+    return trimmed_geomean([math.inf if d == math.inf else d / h for d, h in pairs])
+
+
+def range_p50_ms(records: list[dict], side: int) -> float | None:
+    """Median of one side of the range pairs (0 the degraded halves, 1 the
+    healthy ones), in ms; None under MIN_PAIRS."""
+    pairs = pair_latencies(records)
+    if len(pairs) < MIN_PAIRS:
         return None
     return statistics.median(p[side] for p in pairs) * 1e3
 

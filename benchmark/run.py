@@ -7,7 +7,8 @@ it (`cmd.start_role`, role blobstore, on the CUDA device), with its cluster
 under the TMPDIR it is given. The cell's traffic comes from
 benchmark/client.py in a separate process over loopback HTTP: a preload
 where the mix has one, the disks the mix loses (an AZ whole, disks picked
-by what they hold, or both), warm-up requests for every shape the window
+by what they hold, or both), the plan of any range pairs (from the stored
+layout and what was lost), warm-up requests for every shape the window
 uses, then the window. After the window the run checks
 what the timed path produced against the plain reference
 (benchmark/check.py) and prints one JSON line: the end-to-end metrics with
@@ -28,11 +29,14 @@ T_START = time.monotonic()
 import argparse  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+from dataclasses import asdict  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -41,6 +45,7 @@ sys.path.insert(0, ROOT)
 from benchmark import check, layers, system, traffic  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "chubaofs_tpu")
+GET_OPS = ("get", "range_pairs")  # the window streams whose requests are GETs
 BUCKETS = [16 << 10 << i for i in range(6)]  # the codec's shard buckets, 16 KiB .. 512 KiB
 
 
@@ -217,19 +222,51 @@ def lose_mix(cluster, mix: dict) -> dict[int, set[int]]:
     return lose(cluster, whole + system.victims(cluster, mix["lose_disks"], exclude=whole))
 
 
+def pair_plan(mix: dict, dataset: dict, lost: dict[int, set[int]], seed: int,
+              seconds: float) -> dict:
+    """The mix with each range_pairs stream's `plan` (traffic.range_pairs)
+    beside its parameters, for the window's client."""
+    window = []
+    for s in mix["window"]:
+        if s["op"] == "range_pairs":
+            try:
+                sched, warm = traffic.range_pairs(s, dataset, lost, seed, seconds)
+            except ValueError as e:
+                raise RunError(f"range pairs: {e}") from None
+            s = {**s, "plan": {"window": [(d, asdict(h)) for d, h in sched],
+                               "warm": [asdict(h) for h in warm]}}
+        window.append(s)
+    return {**mix, "window": window}
+
+
 def classify(records: list[dict], dataset: dict, lost: dict[int, set[int]]) -> None:
     """Mark each GET with the bytes it asks for (`want`) and whether it
     reads a shard of a lost disk (`degraded`), from the stored layout, and
-    log the shares and the baselines."""
+    log the shares and the baselines. A range pair's half whose `role` the
+    layout does not bear out is a RunError."""
     gets = [r for r in records if r["op"] == "get"]
     for r in gets:
         r["want"] = dataset["sizes"][r["key"]] if r["length"] is None else r["length"]
         r["degraded"] = layers.reads_lost_shard(json.loads(dataset["locations"][r["key"]]),
                                                 r["offset"], r["length"], lost)
+    halves = [r for r in gets if r.get("role") is not None]
+    wrong = [r for r in halves if (r["role"] == "degraded") != r["degraded"]]
+    if wrong:
+        raise RunError(f"{len(wrong)} range pair halves read what their role does not say: "
+                       f"{wrong[:3]}")
     for kind, part in (("whole", [r for r in gets if r["length"] is None]),
                        ("ranged", [r for r in gets if r["length"] is not None])):
         log(f"{kind} GETs reading a lost shard: {sum(r['degraded'] for r in part)} of "
             f"{len(part)}")
+    if halves:
+        pairs = layers.pair_latencies(records)
+        logs = [math.log(d / h) for d, h in pairs if max(d, h) < math.inf]
+        log(f"range pairs: {len(pairs)} ({sum(max(p) == math.inf for p in pairs)} with a "
+            f"failed half), degraded halves {sum(r['length'] for r in halves if r['degraded'])} "
+            f"B; get_range_lost_x {layers.get_range_lost_x(records)}, p50 degraded "
+            f"{layers.range_p50_ms(records, 0)} ms, healthy {layers.range_p50_ms(records, 1)} "
+            f"ms, log ratio SD {statistics.stdev(logs) if len(logs) > 1 else None}")
+        return
     pairs = layers.baselined(records)
     log(f"degraded GETs with a healthy baseline: {len(pairs)} "
         f"({sum(p[0] == float('inf') for p in pairs)} failed); "
@@ -300,7 +337,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         if fault is not None:
             fault(daemon)
         out, proc = client(job, workdir, "window", client_cpus, dataset=dataset,
-                           warm_put_sizes=warm)
+                           warm_put_sizes=warm,
+                           mix=pair_plan(mix, dataset, lost, seed, seconds))
         procs.append(proc)
         read_line(proc, "READY", 600)
         if device == "cuda":
@@ -338,12 +376,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             classify(records, dataset, lost)
 
         puts = check.check_puts(cluster, cfg["policies"], seed, records) if put_streams else None
-        gets = check.check_gets(records) if any(s["op"] == "get" for s in mix["window"]) else None
+        gets = check.check_gets(records) if any(s["op"] in GET_OPS for s in mix["window"]) \
+            else None
         decoded = (decoded1 - decoded0) / 2**20 if lost else None
-        checks = check.verdict(puts, gets, decoded, check.warm_bad(result["warm"]))
+        checks = check.verdict(puts, gets, decoded, check.warm_bad(result["warm"]),
+                               int(decoded1 - decoded0), check.degraded_halves_bytes(records))
         if decoded is not None:
             served = sum(r["bytes"] for r in records if r["op"] == "get") / 2**20
-            log(f"decoded {decoded:.1f} MiB of {served:.1f} MiB served")
+            log(f"decoded {decoded:.1f} MiB ({decoded1 - decoded0:.0f} B) of {served:.1f} MiB "
+                f"served")
         if puts:
             log(f"PUT: {puts['acked']} acknowledged, {puts['blobs']} blobs read back, "
                 f"{puts['shards_missing']} shards missing")
@@ -410,7 +451,7 @@ def main(argv: list[str] | None = None) -> int:
         log(f"run refused: the process loaded {bad} (JAX or the JAX package)")
         return 3
     for name, c in line["checks"].items():
-        limit = f"<= {c['max']}" if "max" in c else f">= {c['min']}"
+        limit = " ".join(f"{op} {c[k]}" for k, op in (("min", ">="), ("max", "<=")) if k in c)
         log(f"check {name} {c['value']} {limit}")
     print(json.dumps(line), flush=True)
     return 0

@@ -3,7 +3,8 @@ the requests of a run.
 
 A mix (`benchmark/mixes/<name>.json`) names a preload, the disks a run
 loses (and the AZ it loses whole, under `lose_az`), the task switches it
-turns off and the streams of its window. Every
+turns off and the streams of its window: open-loop PUTs, GETs, or range
+pairs (range_pairs: built after the loss, from the stored layout). Every
 seed gets the same set of work in another order: sizes, arrival gaps and
 ranges are fixed quantiles of the mix's distributions, and the seed only
 permutes them, picks the keys and makes the bytes. So two seeds differ in
@@ -140,6 +141,83 @@ def warm_gets(stream: dict, dataset: list[int], seed: int) -> list[Get]:
     block = get_block(stream, dataset)
     order = _rng(seed, WARM, 2).permutation(len(block))
     return [block[i] for i in order[: stream["warm_requests"]]]
+
+
+@dataclass(frozen=True)
+class Half(Get):
+    """One half of a range pair: a ranged GET of a data shard the loss took
+    (`role` "degraded") or of a healthy data shard of the same blob
+    ("healthy"), at the same length and in-shard offset as its twin."""
+    pair: int  # the pair's index in the mix's order
+    role: str
+
+
+def pair_blobs(dataset: dict, lost: dict[int, set[int]]) -> list[tuple[int, int, int, int]]:
+    """The blobs a range pair can read, in a fixed order by their object's
+    size rank, as (key, object offset of data shard i, of data shard j,
+    room): i a data shard the loss took (`lost`: vid -> unit indices lost,
+    as run.lose_mix gives it), j the next data shard after it, wrapping,
+    that the loss left, and room the real bytes both hold (a blob's last
+    data shards hold fewer than the shard size, or none)."""
+    from benchmark.reference import codes
+
+    sizes, out = dataset["sizes"], []
+    for key in sorted(range(len(sizes)), key=lambda k: (sizes[k], k)):
+        loc = json.loads(dataset["locations"][key])
+        mode, pos = codes.by_code(loc["code_mode"]), 0
+        for blob in loc["blobs"]:
+            k, gone = mode.shard_size(blob["size"]), lost.get(blob["vid"], set())
+            real = [min(k, max(0, blob["size"] - s * k)) for s in range(mode.N)]
+            for i in sorted(x for x in gone if x < mode.N):
+                j = next((s % mode.N for s in range(i + 1, i + mode.N)
+                          if s % mode.N not in gone), None)
+                if j is not None:
+                    out.append((key, pos + i * k, pos + j * k, min(real[i], real[j])))
+            pos += blob["size"]
+    return out
+
+
+def range_pairs(stream: dict, dataset: dict, lost: dict[int, set[int]], seed: int,
+                seconds: float) -> tuple[list[tuple[float, Half]], list[Half]]:
+    """Open-loop range pairs at the stream's rate (pairs a second): the
+    window's schedule, (due time, half) with both halves of a pair due at
+    once, and the warm-up's halves.
+
+    Pair p takes the p-th length quantile, clipped to one data shard (the
+    most room of pair_blobs), and the p-th in-shard fraction quantile under
+    a fixed pairing (the mix's, not the seed's, as in get_block), and the
+    next blob of pair_blobs, cycling, whose room holds its length L; at
+    u = fraction x (room - L) into both shards, its degraded half reads L
+    bytes of the lost shard i, its healthy half the same L bytes of shard j.
+    The seed orders the pairs and sets the gaps; which half is handed to a
+    sender first alternates from pair to pair. The warm-up is
+    `warm_requests` / 2 of the window's pairs, evenly spaced by length, in
+    the seed's order. ValueError where the loss took no data shard."""
+    due = arrivals(stream["rate_per_s"], seed, seconds, 4)
+    n, blobs = len(due), pair_blobs(dataset, lost)
+    if not blobs:
+        raise ValueError("no blob lost a data shard beside a healthy one")
+    cap = max(b[3] for b in blobs)
+    fixed = np.random.default_rng(0)
+    lengths = fixed.permutation(np.round(quantiles(stream["range_len"], n)))
+    fracs = fixed.permutation(quantiles({"dist": "uniform", "min": 0, "max": 1}, n))
+    pairs, at = [], 0
+    for p in range(n):
+        length = min(int(lengths[p]), cap)
+        step = next(s for s in range(len(blobs)) if blobs[(at + s) % len(blobs)][3] >= length)
+        key, lost_at, healthy_at, room = blobs[(at + step) % len(blobs)]
+        at = (at + step + 1) % len(blobs)
+        u = int(fracs[p] * (room - length))
+        pairs.append((Half(key, lost_at + u, length, p, "degraded"),
+                      Half(key, healthy_at + u, length, p, "healthy")))
+    order = _rng(seed, WINDOW, 5).permutation(n)
+    sched = [(d, h) for q, (d, p) in enumerate(zip(due, order))
+             for h in (pairs[p] if q % 2 == 0 else pairs[p][::-1])]
+    w = min(stream["warm_requests"] // 2, n)
+    by_len = sorted(range(n), key=lambda p: (pairs[p][0].length, p))
+    picks = [by_len[(2 * m + 1) * n // (2 * w)] for m in range(w)]
+    warm = [h for p in _rng(seed, WARM, 5).permutation(picks) for h in pairs[p]]
+    return sched, warm
 
 
 def stored_bytes(policies: list[dict], object_sizes: list[int]) -> int:
