@@ -193,11 +193,10 @@ def stage_lrc_encode(rng, dev, batch, k: int | None = None) -> Stage:
     length."""
     from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
     from chubaofs_tpu_torch.models import ARCHIVE
-    from chubaofs_tpu_torch.ops import bitmatrix
 
     t = ARCHIVE.tactic
     k = ARCHIVE.shard_len if k is None else k
-    mat_bits = bitmatrix.expand_matrix(lrc_parity_matrix(t)).astype(np.int8)
+    mat_bits = rs.bit_operand(lrc_parity_matrix(t))
     host = rng.integers(0, 256, (batch, t.N, k), dtype=np.uint8)
     return _stage(dev, mat_bits, host, batch * (t.N + t.M + t.L) * k, batch * t.N * k)
 

@@ -30,7 +30,7 @@ from typing import IO, Sequence
 import numpy as np
 
 from chubaofs_tpu_torch.codec.codemode import CodeMode, Tactic, get_tactic
-from chubaofs_tpu_torch.ops import bitmatrix, gf256, rs
+from chubaofs_tpu_torch.ops import gf256, rs
 
 Shards = list[np.ndarray]
 
@@ -314,8 +314,7 @@ class PmEncoder(RsEncoder):
 
         self.device = rs.resolve_device(device)
         self.kernel = pm.get_kernel(t.total, t.N)
-        self._parity_bits = rs.plan_from_numpy(
-            bitmatrix.expand_matrix(self.kernel.parity_mat))
+        self._parity_bits = rs.bit_operand(self.kernel.parity_mat)
 
     def _sub_units(self, rows: np.ndarray) -> np.ndarray:
         """(count, S) shard rows -> (count * alpha, S / alpha) sub-unit rows."""
@@ -363,8 +362,7 @@ class PmEncoder(RsEncoder):
         want = [i for i in bad if i < t.N] if data_only else bad
         if want:
             srv = alive[: t.N]
-            dec = rs.plan_from_numpy(bitmatrix.expand_matrix(
-                self.kernel.decode_matrix(srv, want)))
+            dec = rs.bit_operand(self.kernel.decode_matrix(srv, want))
             fixed = rs.gf_matmul_hostbatch(
                 dec, self._sub_units(mat[np.asarray(srv)]), self.device)
             mat[np.asarray(want)] = fixed.reshape(len(want), mat.shape[1])

@@ -6,12 +6,14 @@ Reference analog: the access layer encodes each blob inline on the CPU
 each call pays host->device latency and a launch, and one small stripe cannot
 fill it. This service batches instead:
 
-  * callers submit encode/repair jobs (numpy matrices) and get futures back;
-  * a dispatcher thread drains the queue, groups jobs by (layout, k-bucket),
-    pads each shard length up to the bucket, stacks them into one (B, n, k)
-    batch in page-locked host memory, copies it to the device, runs ONE
-    kernel call (ops/cuda_gf.py), copies the result back and scatters it to
-    the futures;
+  * every entry point submits one kind of job — a GF(2^8) matrix, the rows
+    it multiplies and a finisher that shapes the product into the entry's
+    result — and gets a future back;
+  * a dispatcher thread drains the queue, groups jobs by (matrix, rows,
+    k-bucket) — shard lengths are padded up to the bucket at submission —
+    stacks each group into one (B, n, k) batch in page-locked host memory,
+    copies it to the device, runs ONE kernel call (ops/cuda_gf.py), copies
+    the result back and scatters it to the futures;
   * shard lengths are bucketed to powers of two (>= 16 KiB), the same buckets
     as the JAX package's service, so both batch identically;
   * the service runs on the device it was built for: CodecService() means
@@ -29,7 +31,8 @@ submission) as stages on the time.perf_counter clock:
     queue, and the drain's max_wait_ms coalescing window);
   * the batch's wall, [start, end], given to every job of the batch in two
     stages that meet end to end: `codec.host` (stacking into the staging
-    buffer) and `codec.launch`, the rest of the call: matrix expansion, the
+    buffer) and `codec.launch`, the rest of the call: the matrix's lowering
+    to its bit operand (ops/rs.py bit_operand), the
     host->device copy, the kernel, the device->host copy and the wait for
     the stream on a card; the matmul on the CPU device; the whole fan-out
     with a mesh. The card's own share of it is the profiler's to give: CUDA
@@ -43,7 +46,6 @@ cfs-trace proof) counts the `codec.` stages as codec work.
 
 from __future__ import annotations
 
-import functools
 import queue
 import threading
 import time
@@ -67,9 +69,9 @@ def bucket_len(k: int) -> int:
 
 
 class _ChainFuture(Future):
-    """Wrapper future whose cancel() propagates to the upstream codec job,
-    so a caller holding only the composed LRC result (encode_tactic) can
-    still drop the queued device work (access pipeline aborts)."""
+    """The future every entry returns: cancel() propagates to the upstream
+    codec job, so a caller holding only the finished result can still drop
+    the queued device work (access pipeline aborts)."""
 
     def __init__(self, upstream: Future):
         super().__init__()
@@ -82,15 +84,12 @@ class _ChainFuture(Future):
 
 @dataclass
 class _Job:
-    kind: str  # "encode" | "matmul"
-    n: int
-    m: int
+    kind: str  # "encode" | "matmul": the counters' label, nothing more
+    mat: np.ndarray  # (r, rows) GF(2^8) matrix the job's rows are multiplied by
     data: np.ndarray  # (rows, kb) uint8 — PRE-PADDED to the shape bucket
     k: int  # true shard length (result is sliced back to it)
     kb: int  # bucket_len(k), computed at submission
     future: Future = field(default_factory=Future)
-    # matmul jobs carry their GF matrix (repair rows x survivors)
-    mat: np.ndarray | None = None
     # the SUBMITTER's trace span (if any) and when the job was queued: the
     # dispatcher attributes the job's queue wait and its batch's stages
     # back onto it (module docstring)
@@ -107,6 +106,21 @@ def _pad_to_bucket(data: np.ndarray, k: int, kb: int) -> np.ndarray:
     out = np.zeros((data.shape[0], kb), np.uint8)
     out[:, :k] = data
     return out
+
+
+def _data_above(parity: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """Finisher of an encode: the full stripe, data rows above parity rows."""
+    return np.concatenate([data, parity], axis=0)
+
+
+def _patch(shards, idx: list[int]):
+    """Finisher of a rebuild: a copy of `shards` with the product's rows
+    written at `idx` (sub-unit rows folded back into shard rows)."""
+    def finish(rows: np.ndarray, _) -> np.ndarray:
+        fixed = np.array(shards, copy=True)
+        fixed[np.asarray(idx)] = rows.reshape(len(idx), -1)
+        return fixed
+    return finish
 
 
 class CodecService:
@@ -153,16 +167,17 @@ class CodecService:
                 self._started = True
 
     # -- public API --------------------------------------------------------
+    #
+    # Every entry is a (GF matrix, rows, finisher) triple handed to _submit:
+    # the device only ever multiplies, and the finisher shapes the product
+    # into what the entry returns.
 
     def encode(self, n: int, m: int, data: np.ndarray) -> Future:
         """data (n, k) uint8 -> Future[(n+m, k) uint8 full stripe]."""
         if data.shape[0] != n:
             raise ValueError(f"want {n} data rows, got {data.shape}")
-        k = data.shape[1]
-        kb = bucket_len(k)
-        job = _Job("encode", n, m, _pad_to_bucket(data, k, kb), k, kb)
-        self._submit(job)
-        return job.future
+        gen = rs.get_kernel(n, m, self.device).gen
+        return self._submit("encode", gen[n:], data, _data_above)
 
     def matmul(self, mat: np.ndarray, data: np.ndarray) -> Future:
         """Generic GF(2^8) matmul job: data (rows, k) uint8 ->
@@ -175,25 +190,16 @@ class CodecService:
         if data.ndim != 2 or mat.ndim != 2 or data.shape[0] != mat.shape[1]:
             raise ValueError(
                 f"matmul shape mismatch: mat {mat.shape} @ data {data.shape}")
-        k = data.shape[1]
-        kb = bucket_len(k)
-        job = _Job("matmul", data.shape[0], mat.shape[0],
-                   _pad_to_bucket(data, k, kb), k, kb, mat=mat)
-        self._submit(job)
-        return job.future
+        return self._submit("matmul", mat, data)
 
     def encode_tactic(self, t, data: np.ndarray) -> Future:
         """data (N, k) uint8 -> Future[(total, k) full stripe], local parities
         included for LRC tactics — computed in ONE composed-matrix matmul
         (encoder.lrc_parity_matrix), not a second device pass. Regenerating
         tactics run their PM parity block the same way: one matmul over the
-        stripe's sub-unit rows."""
-        if t.is_regenerating:
-            return self._encode_pm(t, data)
-        if not t.L:
+        stripe's sub-unit rows, the parity rows reshaped back to shards."""
+        if not t.is_regenerating and not t.L:
             return self.encode(t.N, t.M, data)
-        from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
-
         if data.shape[0] != t.N:
             raise ValueError(f"want {t.N} data rows, got {data.shape}")
         # snapshot ONCE (explicit copy) and build the result from the same
@@ -201,63 +207,20 @@ class CodecService:
         # post-submit mutation must never yield a stripe whose data rows don't
         # match its parity
         data = np.array(data, np.uint8, order="C")
-        mat = lrc_parity_matrix(t)
-        k = data.shape[1]
-        kb = bucket_len(k)
-        job = _Job("matmul", t.N, t.M + t.L, _pad_to_bucket(data, k, kb),
-                   k, kb, mat=mat)
-        self._submit(job)
-        out = _ChainFuture(job.future)
+        if not t.is_regenerating:
+            from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
 
-        def _finish(f: Future):
-            if f.cancelled() or out.cancelled():
-                # cancelled upstream (drain handshake dropped the job) or
-                # downstream (pipeline abort): nothing to deliver
-                return
-            try:
-                if f.exception():
-                    out.set_exception(f.exception())
-                else:
-                    out.set_result(
-                        np.concatenate([data, f.result()], axis=0))
-            except InvalidStateError:
-                pass  # out.cancel() raced the delivery: outcome discarded
-
-        job.future.add_done_callback(_finish)
-        return out
-
-    def _encode_pm(self, t, data: np.ndarray) -> Future:
-        """Product-matrix encode: shard rows reshaped (free) to sub-unit
-        rows, parity block applied as one matmul, parity rows reshaped back
-        to shards. Same snapshot discipline as the LRC path."""
+            return self._submit("matmul", lrc_parity_matrix(t), data, _data_above)
         from chubaofs_tpu_torch.codec import pm
 
-        if data.shape[0] != t.N:
-            raise ValueError(f"want {t.N} data rows, got {data.shape}")
         size = data.shape[1]
         if size % t.sub_units:
             raise ValueError(
                 f"shard size {size} not a multiple of sub_units={t.sub_units}")
-        data = np.array(data, np.uint8, order="C")
-        kernel = pm.get_kernel(t.total, t.N)
-        f = self.matmul(kernel.parity_mat,
-                        data.reshape(t.N * t.sub_units, -1))
-        out = _ChainFuture(f)
-
-        def _finish(fut: Future):
-            if fut.cancelled() or out.cancelled():
-                return
-            try:
-                if fut.exception():
-                    out.set_exception(fut.exception())
-                else:
-                    parity = fut.result().reshape(t.M, size)
-                    out.set_result(np.concatenate([data, parity], axis=0))
-            except InvalidStateError:
-                pass  # out.cancel() raced the delivery: outcome discarded
-
-        f.add_done_callback(_finish)
-        return out
+        return self._submit(
+            "matmul", pm.get_kernel(t.total, t.N).parity_mat,
+            data.reshape(t.N * t.sub_units, -1),
+            lambda parity, _: _data_above(parity.reshape(t.M, size), data))
 
     def reconstruct_tactic(self, t, shards: np.ndarray, bad_idx: list[int],
                            data_only: bool = False) -> Future:
@@ -283,23 +246,11 @@ class CodecService:
                 f"{len(bad)} losses > M={t.M} for regenerating stripe"))
             return f
         srv = alive[: t.N]
-        mat = kernel.decode_matrix(srv, want)
         shards = np.asarray(shards, np.uint8)
-        size = shards.shape[1]
-        job_f = self.matmul(
-            mat, shards[np.asarray(srv)].reshape(t.N * t.sub_units, -1))
-        out_future: Future = Future()
-
-        def _finish(fut: Future):
-            if fut.exception():
-                out_future.set_exception(fut.exception())
-                return
-            fixed = np.array(shards, copy=True)
-            fixed[np.asarray(want)] = fut.result().reshape(len(want), size)
-            out_future.set_result(fixed)
-
-        job_f.add_done_callback(_finish)
-        return out_future
+        return self._submit(
+            "matmul", kernel.decode_matrix(srv, want),
+            shards[np.asarray(srv)].reshape(t.N * t.sub_units, -1),
+            _patch(shards, want))
 
     def reconstruct(
         self, n: int, m: int, shards: np.ndarray, bad_idx: list[int], data_only=False
@@ -311,26 +262,8 @@ class CodecService:
             f: Future = Future()
             f.set_result(np.array(shards, copy=True))
             return f
-        k = shards.shape[1]
-        kb = bucket_len(k)
-        survivors = _pad_to_bucket(
-            np.asarray(shards, np.uint8)[np.asarray(present)], k, kb)
-        job = _Job("matmul", n, m, survivors, k, kb, mat=mat)
-        self._submit(job)
-
-        out_future: Future = Future()
-
-        def _finish(f: Future):
-            if f.exception():
-                out_future.set_exception(f.exception())
-                return
-            rows = f.result()
-            fixed = np.array(shards, copy=True)
-            fixed[np.asarray(missing)] = rows
-            out_future.set_result(fixed)
-
-        job.future.add_done_callback(_finish)
-        return out_future
+        survivors = np.asarray(shards, np.uint8)[np.asarray(present)]
+        return self._submit("matmul", mat, survivors, _patch(shards, missing))
 
     def decode_rows(self, n: int, m: int, present: list[int],
                     survivors: np.ndarray, want: list[int]) -> Future:
@@ -351,12 +284,7 @@ class CodecService:
         if survivors.ndim != 2 or survivors.shape[0] != n:
             raise ValueError(
                 f"want ({n}, w) survivors, got {survivors.shape}")
-        k = survivors.shape[1]
-        kb = bucket_len(k)
-        job = _Job("matmul", n, m, _pad_to_bucket(survivors, k, kb),
-                   k, kb, mat=mat)
-        self._submit(job)
-        return job.future
+        return self._submit("matmul", mat, survivors)
 
     def close(self):
         """Idempotent shutdown; jobs enqueued after close() fail fast, jobs
@@ -372,13 +300,39 @@ class CodecService:
 
     # -- dispatcher --------------------------------------------------------
 
-    def _submit(self, job: _Job):
+    def _submit(self, kind: str, mat: np.ndarray, rows: np.ndarray,
+                finish=None) -> Future:
+        """Queue mat (r, n) GF(2^8) @ rows (n, k) uint8 as one job. Returns a
+        future of finish(product, rows) — the (r, k) product itself when
+        finish is None — whose cancel() drops the job while it is queued."""
         from chubaofs_tpu_torch.blobstore import trace
 
+        k = rows.shape[1]
+        kb = bucket_len(k)
+        job = _Job(kind, mat, _pad_to_bucket(rows, k, kb), k, kb)
+        out = _ChainFuture(job.future)
+
+        def deliver(f: Future):
+            if f.cancelled() or out.cancelled():
+                # cancelled upstream (drain handshake dropped the job) or
+                # downstream (pipeline abort): nothing to deliver
+                return
+            try:
+                if f.exception():
+                    out.set_exception(f.exception())
+                elif finish is None:
+                    out.set_result(f.result())
+                else:
+                    out.set_result(finish(f.result(), job.data[:, :k]))
+            except InvalidStateError:
+                pass  # out.cancel() raced the delivery: outcome discarded
+
+        job.future.add_done_callback(deliver)
         job.span = trace.current_span()
         job.submitted = time.perf_counter()
         self._ensure_started()
         self._q.put(job)
+        return out
 
     def _drain(self) -> list[_Job]:
         try:
@@ -427,40 +381,35 @@ class CodecService:
             if not batch:
                 continue
             # group by compatible shape signature (kb was bucketed at
-            # submission; the drain loop never re-derives shapes)
+            # submission; the drain loop never re-derives shapes). Matrices
+            # are tiny (<= 36x36): key by CONTENT so only jobs with the
+            # identical matrix share a batch; the kind only labels counters
             groups: dict[tuple, list[_Job]] = {}
             for j in batch:
-                if j.kind == "encode":
-                    sig = ("encode", j.n, j.m, j.kb)
-                else:
-                    # matrices are tiny (<= 36x36): key by CONTENT so only jobs
-                    # with the identical repair matrix share a batch
-                    sig = ("matmul", j.mat.tobytes(), j.data.shape[0], j.kb)
+                sig = (j.kind, j.mat.tobytes(), j.data.shape[0], j.kb)
                 groups.setdefault(sig, []).append(j)
-            for sig, jobs in groups.items():
+            for jobs in groups.values():
                 try:
-                    self._run_group(sig, jobs)
+                    self._run_group(jobs)
                 except Exception as e:  # propagate to every waiter
                     for j in jobs:
                         if not j.future.done():
                             j.future.set_exception(e)
 
-    def _record_batch(self, jobs: int, elapsed_s: float,
-                      kind: str = "") -> None:
+    def _record_batch(self, jobs: int, elapsed_s: float, kind: str) -> None:
         from chubaofs_tpu_torch.utils.exporter import BATCH_BUCKETS, registry
 
         reg = registry("codec")
         reg.counter("batches_total").add()
         reg.counter("jobs_total").add(jobs)
-        if kind:
-            # the encode/matmul split: proves repair DECODE really batches
-            # on the device (bench_repair and the kill soak read this)
-            reg.counter("kind_jobs_total", {"kind": kind}).add(jobs)
-            reg.counter("kind_batches_total", {"kind": kind}).add()
+        # the encode/matmul split: proves repair DECODE really batches on
+        # the device (bench_repair and the kill soak read this)
+        reg.counter("kind_jobs_total", {"kind": kind}).add(jobs)
+        reg.counter("kind_batches_total", {"kind": kind}).add()
         reg.summary("batch_jobs", buckets=BATCH_BUCKETS).observe(jobs)
         reg.summary("dispatch_seconds").observe(elapsed_s)
 
-    def _run_group(self, sig: tuple, jobs: list[_Job]):
+    def _run_group(self, jobs: list[_Job]):
         t0 = time.perf_counter()
         for j in jobs:
             if j.span is not None:
@@ -472,22 +421,16 @@ class CodecService:
         stack = buf.numpy()
         np.stack([j.data for j in jobs], out=stack)
         t_dev = time.perf_counter()
-        # H2D copy, one kernel launch, D2H copy (rs.gf_matmul_hostbatch) —
-        # or, with a mesh, the same fanned out in blocks over every device
+        # the group's one product: H2D copy, one kernel launch, D2H copy
+        # (rs.gf_matmul_hostbatch) — or, with a mesh, the same fanned out in
+        # blocks over every device
+        bits = rs.bit_operand(jobs[0].mat)
         if self._mesh_mm is not None:
-            mm, batch = self._mesh_mm, stack
+            out = self._mesh_mm(bits, stack)
         else:
-            mm, batch = functools.partial(rs.gf_matmul_hostbatch, device=self.device), buf
-        if sig[0] == "encode":
-            kernel = rs.get_kernel(jobs[0].n, jobs[0].m, self.device)
-            parity = mm(kernel.parity_bits, batch)
-            out = np.concatenate([stack, parity], axis=1)  # (B, n+m, kb)
-        else:
-            from chubaofs_tpu_torch.ops import bitmatrix
-
-            out = mm(bitmatrix.expand_matrix(jobs[0].mat).astype(np.int8), batch)
+            out = rs.gf_matmul_hostbatch(bits, buf, device=self.device)
         t_done = time.perf_counter()
-        self._record_batch(len(jobs), t_done - t0, kind=str(sig[0]))
+        self._record_batch(len(jobs), t_done - t0, jobs[0].kind)
         for j in jobs:
             if j.span is not None:
                 # the BATCH's wall intervals, attributed to every rider: the

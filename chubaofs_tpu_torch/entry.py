@@ -68,7 +68,7 @@ def dryrun_multichip(n_devices: int, device=None, shard_len: int = 1 << 20) -> d
     from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
     from chubaofs_tpu_torch.codec.service import CodecService
     from chubaofs_tpu_torch.models import ARCHIVE, FLAGSHIP
-    from chubaofs_tpu_torch.ops import bitmatrix, gf256, rs
+    from chubaofs_tpu_torch.ops import gf256, rs
     from chubaofs_tpu_torch.parallel import (
         codec_mesh, sharded_codec_step, sharded_gf_matmul, ungroup_stripe)
 
@@ -113,7 +113,7 @@ def dryrun_multichip(n_devices: int, device=None, shard_len: int = 1 << 20) -> d
     # global+local generator, one product per block
     t5 = ARCHIVE.tactic
     lrc_mat = lrc_parity_matrix(t5)
-    lrc_bits = bitmatrix.expand_matrix(lrc_mat).astype(np.int8)
+    lrc_bits = rs.bit_operand(lrc_mat)
     data5 = rng.integers(0, 256, (dp * 2, t5.N, 4096), dtype=np.uint8)
     parity5 = sharded_gf_matmul(mesh)(lrc_bits, data5)
     want5 = np.stack([gf256.gf_matmul(lrc_mat, d) for d in data5])

@@ -211,6 +211,12 @@ def xor_reduce(shards: torch.Tensor) -> torch.Tensor:
     return functools.reduce(torch.bitwise_xor, shards.unbind(-2))
 
 
+def bit_operand(mat) -> torch.Tensor:
+    """A GF(2^8) matrix (r, n) as the operand every kernel here takes: its
+    byte-major (8r, 8n) GF(2) bit matrix, as a host int8 tensor."""
+    return mat_tensor(bitmatrix.expand_matrix(mat))
+
+
 def plan_from_numpy(mat_bits, present=None, missing=None, device=None):
     """The port's form of a matrix or repair plan made by numpy (the JAX
     package's, or this package's own host code): the bit matrix as a host
@@ -249,8 +255,7 @@ class RSKernel:
         self.gen = gf256.systematic_generator(n, m)  # (n+m, n) uint8
         # host-resident like every matrix of the port: the kernel wrapper
         # reads its coefficients on the host and caches tables per device
-        self.parity_bits = plan_from_numpy(
-            bitmatrix.expand_matrix(self.gen[n:, :]))
+        self.parity_bits = bit_operand(self.gen[n:, :])
 
     # -- encode ------------------------------------------------------------
 
@@ -277,8 +282,8 @@ class RSKernel:
     def repair_matrix(self, bad_idx: list[int], data_only: bool = False) -> tuple[np.ndarray, list[int], list[int]]:
         """Host-side: (matrix mapping survivors->missing, survivor rows, missing rows).
 
-        survivor rows are the first n present indices; matrix is GF(2^8) of shape
-        (len(missing), n), already verified invertible via decode_matrix.
+        survivor rows are the first n present indices; matrix is
+        window_matrix(present, missing), GF(2^8) of shape (len(missing), n).
         """
         bad = sorted(set(int(i) for i in bad_idx))
         for i in bad:
@@ -287,10 +292,8 @@ class RSKernel:
         if len(bad) > self.m:
             raise ValueError(f"{len(bad)} missing shards > m={self.m}, unrecoverable")
         present = [i for i in range(self.total) if i not in set(bad)][: self.n]
-        dec = gf256.decode_matrix(self.gen, present)  # (n, n)
         missing = [i for i in bad if i < self.n] if data_only else bad
-        mat = gf256.gf_matmul(self.gen[np.asarray(missing), :], dec) if missing else np.zeros((0, self.n), np.uint8)
-        return mat, present, missing
+        return self.window_matrix(present, missing), present, missing
 
     def window_matrix(self, present: list[int], want: list[int]) -> np.ndarray:
         """Row-sliced decode matrix for ranged reads: the GF(2^8) map from
@@ -324,8 +327,7 @@ class RSKernel:
         return self._device_plan(mat, present, missing)
 
     def _device_plan(self, mat, present, missing):
-        return plan_from_numpy(bitmatrix.expand_matrix(mat), present, missing,
-                               self.device)
+        return plan_from_numpy(bit_operand(mat), present, missing, self.device)
 
     def repair_plan_padded(self, bad_idx: list[int], data_only: bool = False):
         """Fixed-shape repair plan: always m repair rows. Padded slots carry

@@ -256,19 +256,47 @@ def test_codec_service_concurrent_mixed_load():
         svc.close()
 
 
-def test_lrc_encode_cancel_chains_and_service_survives():
-    """(test_blobstore_pipeline.py) cancel on an LRC encode_tactic wrapper
-    future chains to the queued codec job and never breaks result delivery."""
-    svc = CodecService(device=CPU)
+# every public entry of the service, each called on rows of one (12, k)
+# uint8 block: the data rows, a stripe with garbage at its bad rows, or the
+# survivors of a window
+_ENTRIES = {
+    "encode": lambda svc, x: svc.encode(6, 3, x[:6]),
+    "matmul": lambda svc, x: svc.matmul(x[:2, :6], x[:6]),
+    "decode_rows": lambda svc, x: svc.decode_rows(
+        6, 3, [0, 2, 3, 5, 6, 8], x[:6], [1, 4]),
+    "reconstruct": lambda svc, x: svc.reconstruct(6, 3, x[:9], [1, 7]),
+    "encode_tactic_rs": lambda svc, x: svc.encode_tactic(
+        get_tactic(CodeMode.EC6P3), x[:6]),
+    "encode_tactic_lrc": lambda svc, x: svc.encode_tactic(
+        get_tactic(CodeMode.EC6P3L3), x[:6]),
+    "encode_tactic_pm": lambda svc, x: svc.encode_tactic(
+        get_tactic(CodeMode.RG4P4), x[:4]),
+    "reconstruct_tactic_rs": lambda svc, x: svc.reconstruct_tactic(
+        get_tactic(CodeMode.EC6P3), x[:9], [1, 7]),
+    "reconstruct_tactic_pm": lambda svc, x: svc.reconstruct_tactic(
+        get_tactic(CodeMode.RG4P4), x[:8], [0, 5]),
+}
+
+
+@pytest.mark.parametrize("entry", list(_ENTRIES))
+def test_lrc_encode_cancel_chains_and_service_survives(rng, entry):
+    """(test_blobstore_pipeline.py) cancel on any entry's future chains to
+    its queued codec job: the job never reaches the device, the job queued
+    beside it delivers, and the service then serves the next job."""
+    call = _ENTRIES[entry]
+    x = rng.integers(0, 256, (12, 3000), dtype=np.uint8)
+    svc = CodecService(device=CPU, max_wait_ms=200.0)
     try:
-        t = get_tactic(int(CodeMode.EC6P3L3))
-        mat = np.zeros((t.N, 64), np.uint8)
-        futs = [svc.encode_tactic(t, mat) for _ in range(8)]
-        for f in futs[4:]:
-            f.cancel()
-        for f in futs[:4]:
-            assert f.result(timeout=30).shape[0] == t.total
-        assert svc.encode_tactic(t, mat).result(timeout=30).shape[0] == t.total
+        jobs = registry("codec").counter("jobs_total")
+        jobs0 = jobs.value
+        keep = call(svc, x)
+        drop = call(svc, x)
+        assert drop.cancel()
+        kept = keep.result(timeout=30)
+        assert drop.cancelled()
+        assert jobs.value - jobs0 == 1
+        assert np.array_equal(call(svc, x).result(timeout=30), kept)
+        assert jobs.value - jobs0 == 2
     finally:
         svc.close()
 
@@ -403,22 +431,18 @@ def _at(span, prefix):
                   for name, off, dur in span.stages if name.startswith(prefix))
 
 
-@pytest.mark.parametrize("kind", ["encode", "decode_rows", "matmul"])
+@pytest.mark.parametrize("kind", ["encode", "decode_rows", "matmul", "reconstruct",
+                                  "encode_tactic_lrc", "reconstruct_tactic_pm"])
 def test_queue_wait_ends_where_the_batch_tiles_its_wall(rng, kind):
     """A job's wait.codec runs from its submission to the start of its
     batch, and the batch's codec.host and codec.launch stages then cover
     its wall end to end, one after the other."""
-    data = rng.integers(0, 256, (6, 3000), dtype=np.uint8)
+    x = rng.integers(0, 256, (12, 3000), dtype=np.uint8)
     svc = CodecService(device=CPU, max_wait_ms=5.0)
     try:
         with t_trace.start_span("get") as span:
             t_before = time.perf_counter()
-            if kind == "encode":
-                f = svc.encode(6, 3, data)
-            elif kind == "decode_rows":
-                f = svc.decode_rows(6, 3, [0, 2, 3, 5, 6, 8], data, [1, 4])
-            else:
-                f = svc.matmul(rng.integers(0, 256, (2, 6), dtype=np.uint8), data)
+            f = _ENTRIES[kind](svc, x)
             t_after = time.perf_counter()
             f.result(timeout=30)
             t_result = time.perf_counter()
