@@ -381,12 +381,22 @@ class Access:
 
     def _encode_blob(self, t, blob: bytes):
         """Submit one blob to the codec service; returns the stripe future.
-        One composed-matrix device pass yields global AND local parity."""
+        One composed-matrix device pass yields global AND local parity. The
+        caller's side of it, from here to the future in hand (the stripe
+        matrix, the blob's copy into it, the service's pad to its bucket),
+        is the span's `submit` stage."""
+        from chubaofs_tpu_torch.blobstore import trace
+
+        t_sub = time.perf_counter()
         shard_len = t.shard_size(len(blob))
         mat = np.zeros((t.N, shard_len), np.uint8)
         flat = mat.reshape(-1)
         flat[: len(blob)] = np.frombuffer(blob, np.uint8)
-        return self.codec.encode_tactic(t, mat)
+        fut = self.codec.encode_tactic(t, mat)
+        span = trace.current_span()
+        if span is not None:
+            span.add_stage("submit", start=t_sub)
+        return fut
 
     def _write_blob(self, t, mode: int, vol: VolumeInfo, bid: int,
                     stripe: np.ndarray) -> VolumeInfo:

@@ -26,6 +26,13 @@ step name for work (`read`, `gather`, `decode`, `encode`, `write`; the
 codec's `codec.host` and `codec.launch`, codec/service.py; `rpc.pool`,
 `raft`...). `finish()` hands the span to the trace sink (utils/tracesink.py)
 when one is installed; with no sink the hook is a single None check.
+
+`finish()` also keeps process-wide totals of the gateway's PUT spans (the
+ops in `TOTAL_OPS`) in `registry("trace")`, hook or no hook: the span's wall
+in `span_seconds_total{op}`, one count in `spans_total{op}`, and for each
+stage name in `TOTAL_STAGES` the union of that stage's intervals clipped to
+the span in `stage_seconds_total{op, stage}`. So a reader learns where a
+run's PUTs spent their time without recording one span.
 """
 
 from __future__ import annotations
@@ -45,6 +52,13 @@ TRACK_MAX = 64
 # retry-looped hop must not grow a span record without limit
 STAGE_MAX = 128
 _ENTRY_MAX = 128  # one hostile module name must not be the whole header
+
+# the ops and stage names whose totals finish() keeps: the gateway's PUT
+# stages and the codec's (codec/service.py) that the PUT readers read
+# (benchmark/preload.py). Closed sets, so the counters' labels are bounded
+TOTAL_OPS = frozenset({"access.put"})
+TOTAL_STAGES = frozenset({
+    "submit", "encode", "write", "wait.codec", "codec.host", "codec.launch"})
 
 # sink hook installed by utils/tracesink (None = tracing-only, zero
 # persistence work); called with the finished span, must never raise
@@ -99,6 +113,28 @@ def overlap_ratio(a, b) -> float | None:
         return None
     floor = min(union_len(a), union_len(b))
     return (intersect_len(a, b) / floor) if floor > 0 else 0.0
+
+
+def add_totals(span: "Span") -> None:
+    """Add one finished span to the `registry("trace")` totals (module
+    docstring): its wall, its count, and each kept stage's union of
+    intervals clipped to [0, wall] of the span."""
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    wall = span.finished_us / 1e6
+    per: dict[str, list[tuple[float, float]]] = {}
+    for name, off, dur in list(span.stages):
+        if name in TOTAL_STAGES:
+            lo, hi = max(0.0, off), min(wall, off + dur)
+            if hi > lo:
+                per.setdefault(name, []).append((lo, hi))
+    reg = registry("trace")
+    reg.counter("span_seconds_total", {"op": span.operation}).add(wall)
+    reg.counter("spans_total", {"op": span.operation}).add()
+    for name, intervals in per.items():
+        reg.counter("stage_seconds_total",
+                    {"op": span.operation, "stage": name}).add(union_len(intervals))
+
 
 _local = threading.local()
 
@@ -217,6 +253,11 @@ class Span:
                 for e in self.track:
                     self.parent._push_track(e)
                 self.parent.track_dropped += self.track_dropped
+            if self.operation in TOTAL_OPS:
+                try:
+                    add_totals(self)
+                except Exception:
+                    pass  # counting must never fail the traced op
             hook = _finish_hook
             if hook is not None:
                 try:

@@ -210,7 +210,7 @@ class CodecService:
         if not t.is_regenerating:
             from chubaofs_tpu_torch.codec.encoder import lrc_parity_matrix
 
-            return self._submit("matmul", lrc_parity_matrix(t), data, _data_above)
+            return self._submit("encode", lrc_parity_matrix(t), data, _data_above)
         from chubaofs_tpu_torch.codec import pm
 
         size = data.shape[1]
@@ -218,7 +218,7 @@ class CodecService:
             raise ValueError(
                 f"shard size {size} not a multiple of sub_units={t.sub_units}")
         return self._submit(
-            "matmul", pm.get_kernel(t.total, t.N).parity_mat,
+            "encode", pm.get_kernel(t.total, t.N).parity_mat,
             data.reshape(t.N * t.sub_units, -1),
             lambda parity, _: _data_above(parity.reshape(t.M, size), data))
 

@@ -515,8 +515,10 @@ class _LoopShard(threading.Thread):
                 reply = self.server.on_message(msg)
                 self.server.dispatch_tp.observe(time.perf_counter() - t0)
                 if reply is not None:
-                    self.send(conn, self.server.encode(reply),
-                              close_after=self.server.close_reply(reply))
+                    whole = self.send(conn, self.server.encode(reply),
+                                      close_after=self.server.close_reply(reply))
+                    if whole and self.server.on_sent is not None:
+                        self.server.sent(reply)
             except Exception:
                 # a handler- OR encode-escaping error is conn-fatal (the
                 # threaded path's serve thread died the same way); an error
@@ -528,7 +530,7 @@ class _LoopShard(threading.Thread):
 
     # -- write side ------------------------------------------------------------
 
-    def send(self, conn: _Conn, iov: list, close_after: bool = False) -> None:
+    def send(self, conn: _Conn, iov: list, close_after: bool = False) -> bool:
         """Send an iovec on `conn` (worker-thread safe). Fast path: when the
         write queue is empty — no flush in flight, ordering is ours — try a
         direct non-blocking `sendmsg` right here under the shard lock. Most
@@ -540,13 +542,15 @@ class _LoopShard(threading.Thread):
 
         `close_after` tears the connection down once THIS iov is fully on
         the wire (HTTP `Connection: close`): reads stop immediately, the
-        close itself waits for the flush."""
+        close itself waits for the flush. Returns True when the direct send
+        put the whole iov on the wire, False when any of it was queued."""
         total = sum(len(b) for b in iov)
         views = [memoryview(b) for b in iov]
         action = None
+        done = False
         with self._lock:
             if conn.closed:
-                return
+                return False
             if close_after:
                 conn.close_after = True
             if not conn.wq and hasattr(conn.sock, "sendmsg"):
@@ -562,8 +566,10 @@ class _LoopShard(threading.Thread):
                     conn.wq.extend(rest)
                     conn.wq_bytes += sum(len(v) for v in rest)
                     action = action or "flush"
-                elif conn.close_after and action is None:
-                    action = "close"  # reply fully on the wire: tear down now
+                else:
+                    done = action is None
+                    if conn.close_after and action is None:
+                        action = "close"  # reply fully on the wire: tear down now
             else:
                 conn.wq.extend(views)
                 conn.wq_bytes += total
@@ -573,6 +579,7 @@ class _LoopShard(threading.Thread):
             self.post(lambda c=conn: self._after_send(c))
         elif action == "close":
             self.post(lambda c=conn: self._close(c))
+        return done
 
     def _after_send(self, conn: _Conn) -> None:
         if conn.closed:
@@ -662,7 +669,7 @@ class EvloopServer:
                  name: str = "pkt", framer_factory=PacketFramer,
                  encode=packet_iov, shards: int | None = None,
                  workers: int | None = None, write_hwm: int | None = None,
-                 close_reply=None):
+                 close_reply=None, on_sent=None):
         self.listener = listener
         self.on_message = on_message
         self.name = name
@@ -671,6 +678,10 @@ class EvloopServer:
         # does THIS reply end its connection? (HTTP Connection: close); the
         # packet protocols never do — every conn outlives every reply
         self.close_reply = close_reply or (lambda reply: False)
+        # on_sent(reply), given, runs on the worker whose direct send put the
+        # whole reply on the wire; a reply that had to queue for a flush is
+        # not reported
+        self.on_sent = on_sent
         self.reg = registry("evloop")
         self.dispatch_tp = self.reg.summary("dispatch", {"srv": name})
         self.write_hwm = write_hwm if write_hwm is not None \
@@ -685,6 +696,12 @@ class EvloopServer:
         self._next = 0
         self._accept_thread = threading.Thread(
             target=self._accept, daemon=True, name=f"evloop-{name}-accept")
+
+    def sent(self, reply) -> None:
+        try:
+            self.on_sent(reply)
+        except Exception:
+            pass  # the hook's failure must never fail the connection
 
     def start(self) -> None:
         for s in self.shards:

@@ -31,6 +31,17 @@ serving HTTP/1.1 instead of binary packets.
 rpc/server.py for A/B and rollback — the same escape-hatch contract as
 CFS_EVLOOP on the packet servers.
 
+The face's own time for PUT requests (`registry("evloop")`, label
+`method="PUT"`; the methods no reader reads are not counted), from
+`time.perf_counter()` stamps the framer and the worker take where they
+already run: `http_recv_seconds_total` (the request's first byte read to
+its body complete), `http_queue_seconds_total` (complete to a worker
+starting the handler), `http_handler_seconds_total` (the handler's wall),
+`http_send_seconds_total` (the reply handed back to the evloop to the
+direct send that put it whole on the wire) and `http_requests_total`. A
+reply that has to queue for the shard's flush is not counted: a PUT's
+small reply leaves whole. The threaded fallback keeps none of them.
+
 Not implemented (the daemons' HTTP dialect never uses them, matching the
 threaded path's Content-Length-only body reads): chunked transfer encoding
 (501), obs-fold header continuations (400), interim 100-continue responses
@@ -57,6 +68,8 @@ MAX_HEADER_BYTES = 32 << 10
 MAX_BODY_BYTES = MAX_DATA_LEN
 # scratch recv buffer per connection (the greedy framer's `need()`)
 _SCRATCH = 64 << 10
+# the methods whose face time is counted (module docstring)
+TIMED_METHODS = frozenset({"PUT"})
 
 
 def http_evloop_enabled() -> bool:
@@ -74,7 +87,7 @@ class HttpRequest:
     and the connection closes."""
 
     __slots__ = ("method", "target", "headers", "body", "remote", "close",
-                 "err")
+                 "err", "t_first", "t_read")
 
     def __init__(self, method: str = "", target: str = "",
                  headers: dict | None = None, body: bytes = b"",
@@ -86,6 +99,9 @@ class HttpRequest:
         self.remote = remote
         self.close = close
         self.err = err  # (status, reason-body) tuple for framing errors
+        # perf_counter stamps: the request's first byte read, its body complete
+        self.t_first = 0.0
+        self.t_read = 0.0
 
 
 class HttpReply:
@@ -93,7 +109,7 @@ class HttpReply:
     header-bytes + body iovec (partial sends resume via packet.advance_iov
     in the shared shard flush)."""
 
-    __slots__ = ("status", "headers", "body", "head_only", "close")
+    __slots__ = ("status", "headers", "body", "head_only", "close", "timing")
 
     def __init__(self, status: int, headers: dict, body: bytes,
                  head_only: bool = False, close: bool = False):
@@ -102,6 +118,9 @@ class HttpReply:
         self.body = body
         self.head_only = head_only
         self.close = close
+        # (method, first byte, body complete, handler start, handler end) of
+        # the request it answers; None where it is not counted
+        self.timing = None
 
 
 def encode_reply(reply: HttpReply) -> list:
@@ -148,6 +167,7 @@ class HttpFramer:
         self._msg: HttpRequest | None = None
         self._dead = False
         self._remote = "-"
+        self._t_first: float | None = None  # current request's first byte
 
     def on_connect(self, sock: socket.socket) -> None:
         try:
@@ -188,10 +208,13 @@ class HttpFramer:
                 if self._body_got == len(self._body):
                     msg, self._msg = self._msg, None
                     msg.body = bytes(self._body)
+                    self._stamp(msg)
                     out.append((msg, self._head_bytes + self._body_got))
                     self._body, self._body_got = None, 0
                 continue
             # head phase: everything unparsed lives in _buf
+            if self._t_first is None and (self._buf or len(mv)):
+                self._t_first = time.perf_counter()
             idx = self._buf.find(b"\r\n\r\n", self._scan)
             if idx >= 0:
                 head = bytes(self._buf[:idx])
@@ -214,6 +237,12 @@ class HttpFramer:
             self._buf += mv[:take]
             mv = mv[take:]
         return out
+
+    def _stamp(self, msg: HttpRequest) -> None:
+        """The request is complete: its first byte's stamp and now."""
+        msg.t_first = self._t_first
+        msg.t_read = time.perf_counter()
+        self._t_first = None
 
     def _error(self, out: list, status: int, detail: str) -> None:
         out.append((HttpRequest(remote=self._remote, close=True,
@@ -269,12 +298,30 @@ class HttpFramer:
         msg = HttpRequest(method=method, target=target, headers=headers,
                           remote=self._remote, close=close)
         if cl == 0:
+            self._stamp(msg)
             out.append((msg, self._head_bytes))
             return True
         self._msg = msg
         self._body = bytearray(cl)
         self._body_got = 0
         return True
+
+
+def _count_sent(reply: HttpReply) -> None:
+    """The evloop's on_sent: the reply is whole on the wire, so its
+    request's four intervals go to the face's counters (module docstring)."""
+    if reply.timing is None:
+        return
+    from chubaofs_tpu_torch.utils.exporter import registry
+
+    method, t_first, t_read, t_start, t_end = reply.timing
+    t_sent = time.perf_counter()
+    reg = registry("evloop")
+    reg.counter("http_recv_seconds_total", {"method": method}).add(t_read - t_first)
+    reg.counter("http_queue_seconds_total", {"method": method}).add(t_start - t_read)
+    reg.counter("http_handler_seconds_total", {"method": method}).add(t_end - t_start)
+    reg.counter("http_send_seconds_total", {"method": method}).add(t_sent - t_end)
+    reg.counter("http_requests_total", {"method": method}).add()
 
 
 class HttpEvloopCore:
@@ -304,7 +351,7 @@ class HttpEvloopCore:
         self.core = EvloopServer(
             listener, self._on_message, name=f"http-{name}",
             framer_factory=HttpFramer, encode=encode_reply,
-            close_reply=lambda reply: reply.close)
+            close_reply=lambda reply: reply.close, on_sent=_count_sent)
 
     def start(self) -> "HttpEvloopCore":
         self.core.start()
@@ -318,6 +365,7 @@ class HttpEvloopCore:
             return HttpReply(status, {"Content-Type": "application/json"},
                              json.dumps({"error": detail}).encode(),
                              close=True)
+        t_start = time.perf_counter()
         req = self._parse_request(msg.method, msg.target, msg.headers,
                                   msg.body, remote=msg.remote)
         with self._drain:
@@ -328,9 +376,13 @@ class HttpEvloopCore:
             with self._drain:
                 self._inflight -= 1
                 self._drain.notify_all()
-        return HttpReply(resp.status, resp.headers, resp.body,
-                         head_only=(msg.method.upper() == "HEAD"),
-                         close=msg.close)
+        method = msg.method.upper()
+        reply = HttpReply(resp.status, resp.headers, resp.body,
+                          head_only=(method == "HEAD"), close=msg.close)
+        if method in TIMED_METHODS:
+            reply.timing = (method, msg.t_first, msg.t_read, t_start,
+                            time.perf_counter())
+        return reply
 
     def _pending_write_bytes(self) -> int:
         total = 0
